@@ -1,12 +1,12 @@
 """Point-cloud container: a static-shape, mask-padded pytree.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The reference keeps clouds as PCL objects and dense Eigen matrices
-(`myicp.h:26-28`, `myicp.cpp:109-111`). On TPU everything under `jit` must
-have static shapes, so a cloud is a fixed-capacity ``(N, 3)`` array plus a
+(`myicp.h:26-28`, `myicp.cpp:109-111`). Under `jit` everything must have
+static shapes, so a cloud is a fixed-capacity ``(N, 3)`` array plus a
 validity mask; all kernels (kNN, normal estimation, ICP reductions) respect
-the mask. Capacity is padded to a lane-friendly multiple so Pallas/MXU
+the mask. Capacity is padded to a power-of-two-friendly multiple so kernel
 tiling never sees ragged edges.
 """
 
@@ -17,11 +17,11 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from icpx import struct
 
-# Lane-friendly padding multiple: the TPU lane dimension is 128 and fp32
-# sublane tiles are 8; padding N to a multiple of 128 keeps every layout
-# (N-in-lanes transposed or N-in-sublanes) tileable.
+# Padding multiple: N a multiple of 128 keeps every tiling (KD tiles of
+# 64/128 points, GPU kernel blocks of power-of-two rows) free of ragged
+# edges.
 PAD_MULTIPLE = 128
 
 # Coordinate used for padded (invalid) rows.  A large-but-finite sentinel so

@@ -24,7 +24,7 @@ SPATIAL neighbor blocks: the point is perturbed by +-`route_radius`
 along each axis, the perturbed Morton keys map to blocks, and the first
 distinct non-primary blocks get the remaining hops. (Round-1 used
 Morton-ADJACENT ranges, which are not spatially adjacent across octant
-seams of the space-filling curve — VERDICT weak #7; the Morton mode
+seams of the space-filling curve; the Morton mode
 remains as `route_mode="morton"`.) Residual misses are genuine-but-worse
 matches, handled like block-NN misses.
 """
@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 from jax import lax
-from flax import struct
+from icpx import struct
 
 from icpx.cloud import PAD_COORD
 from icpx.kernels.blocknn import morton_keys
@@ -143,7 +143,7 @@ def routed_map_nn(
     iterations) plus `block_payload` (the matching flat (S, 6) xyz+normal
     table in sorted tile order) and received queries are answered by
     `block_nn` at O(Nq·K·tile) per hop instead of the brute O(Nq·S)
-    (VERDICT r4 weak #4; replaces `pcl::search::KdTree`,
+    (replaces `pcl::search::KdTree`,
     `/root/reference/ICP/myicp.cpp:158`, at map scale). Misses follow
     block-NN semantics: genuine-but-larger distances (robust-gated
     downstream), never wrong values at small distance.

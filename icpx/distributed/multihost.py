@@ -30,15 +30,15 @@ def init_multihost(
     """Initialize the JAX distributed runtime when running multi-host.
 
     Arguments default from the standard env vars
-    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or the
-    TPU metadata on Cloud TPU pods, where initialize() autodetects).
+    (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or a
+    cluster environment that initialize() autodetects).
     Returns True if multi-host initialization happened.
     """
     num = num_processes or _env_int("JAX_NUM_PROCESSES")
     addr = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     pid = process_id if process_id is not None else _env_int("JAX_PROCESS_ID")
     if addr is None and num is None:
-        # Cloud TPU pod slices autodetect; bare single-host does nothing.
+        # managed clusters autodetect; bare single-host does nothing.
         try:
             if jax.process_count() > 1:
                 return True

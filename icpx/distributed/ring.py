@@ -12,9 +12,9 @@ schedule-independent of the fold compute — 0 compute ancestors, 0
 descendants, with the full per-shard fold available to hide it behind
 (verified structurally on the compiled HLO by
 tests/test_hlo_overlap.py; `scripts/hlo_dump.py ring` prints the
-report). That is the precondition for the TPU LatencyHidingScheduler's
-async collective-permute-start/done conversion; actual wall-clock
-overlap on multi-chip hardware remains unmeasured in this environment.
+report). That is the precondition for XLA's latency-hiding scheduler to
+turn the collective into an async collective-permute-start/done pair;
+actual wall-clock overlap on multi-device hardware is not measured yet.
 
 Use inside `shard_map` with a named mesh axis.
 """
@@ -45,10 +45,9 @@ def ring_nearest_neighbor(
 
     LEGACY PATH for small shards: each fold is a brute O(Nq*Ns) pass and
     the payload gather at line ~`pl_cur[li]` is a per-query random row
-    gather — the pattern measured super-linear at large tables (NOTES
-    round-3 lever 1). For 1M+/device shards use `ring_block_nn` (tile
+    gather — the pattern that scales super-linearly at large tables. For 1M+/device shards use `ring_block_nn` (tile
     index + payload tiles riding the ring), which this module keeps as
-    the scalable variant (VERDICT r4 weak #8).
+    the scalable variant.
 
     Returns (sqdist (Nq,), global index (Nq,), gathered payload or None).
     Global indices are `owner_device * Ns + local_index`, matching a
@@ -118,7 +117,7 @@ def ring_block_nn(
     feat_tiles: jax.Array | None = None,
     feat_weight: float = 1.0,
     score_prec: str = "highest",
-    payload_prec: str = "high",
+    payload_prec: str = "highest",
     payload_xyz: int = 0,
 ) -> Tuple[jax.Array, jax.Array]:
     """Block (tile-index) NN of local query tiles against the UNION of all
@@ -132,8 +131,7 @@ def ring_block_nn(
     Per-step comm = the shard's tile arrays (~the points themselves), the
     same traffic as `ring_nearest_neighbor`, but each fold costs
     O(Nq_local * K * S) instead of O(Nq_local * Ns) — the brute ring's
-    quadratic term is what made 1M+/device shards unusable (VERDICT
-    round 1, missing #1).
+    quadratic term is what made 1M+/device shards unusable.
 
     Feature-augmented matching (`query_feat` (Tq, Sq) local scalar
     channel, `feat_tiles` (T, S) per-shard target channel) runs the 4D

@@ -73,7 +73,7 @@ def sharded_register(
     # Target-centroid auto-centering, conjugated back into the returned
     # transform — same precision discipline as register() (fp32
     # squared-distance expansions lose ~half their digits at UTM-scale
-    # coordinate magnitudes; ADVICE round-1).
+    # coordinate magnitudes).
     center = tgt.centroid()
     shift = SE3.identity().replace(t=-center)
     unshift = SE3.identity().replace(t=center)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from icpx import struct
 
 _EPS = 1e-9
 # Tiny bias inside sqrt so norms are differentiable at 0 (autodiff of

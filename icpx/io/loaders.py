@@ -130,7 +130,7 @@ def reference_data_dir() -> Path:
     The demo fixtures (cat.pcd / cat_out.pcd / txt2pcd_bunny1.pcd / za.txt,
     reference C9: /root/reference/ICP) are vendored into tests/data so the
     golden tests run on a bare checkout. Resolved at CALL time, so setting
-    ICPX_DATA_DIR after import works (round-2 VERDICT weak #8: the old
+    ICPX_DATA_DIR after import works (the old
     module-level constant froze the env var at first import).
     """
     env = os.environ.get("ICPX_DATA_DIR")

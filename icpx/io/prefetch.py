@@ -5,7 +5,7 @@ Sequential odometry alternates [load scan k+1] -> [register scan k+1];
 on real sequences (KITTI velodyne ~2 MB/scan) the load is file IO plus
 the native C parser (`native/icpx_io.cpp`), both of which release the
 GIL — so a small thread pool keeps `depth` scans decoded ahead while the
-TPU registers the current one. The reference has no data layer at all
+device registers the current one. The reference has no data layer at all
 (it reads two files at startup, `myicp.cpp:20-31`); this is the
 streaming ingest tier a production odometry pipeline needs.
 """

@@ -1,9 +1,8 @@
-"""Block-sparse (IVF-style) nearest neighbor — the TPU-native scalable NN.
+"""Block-sparse (IVF-style) nearest neighbor — the scalable NN.
 
 Why not a KD-tree, and why not hash-probe gathers: traversal is pointer
-chasing, and per-query random gathers compile/run catastrophically slowly
-in XLA on TPU (measured: 27-probe voxel query at 1M pts ~4s). The TPU
-wants big contiguous blocks and matmuls, so:
+chasing, and per-query random multi-probe gathers are slow under XLA.
+Accelerators want big contiguous blocks and dense tile math, so:
 
   build (once per reference cloud):
     1. Morton-order the points (30-bit interleaved key of 10-bit/axis
@@ -17,12 +16,13 @@ wants big contiguous blocks and matmuls, so:
     2. per query tile: top-K nearest reference tiles by centroid distance
        (a (Tq, T) matmul + top_k — tiny);
     3. scan over k = 1..K: slice the k-th candidate tile for every query
-       tile ((Tq, S, 3) contiguous-row gather = pure DMA), compute the
-       (Sq, S) squared-distance block via a batched MXU matmul with the
+       tile ((Tq, S, 3) contiguous-row gather), compute the (Sq, S)
+       squared-distance block via a batched matmul with the
        augmented-coordinate trick, fold a running (min, argmin).
 
   Cost: Nq * K * S candidate pairs (vs Nq * Nr brute force) with zero
-  per-point gathers. At 1M points, K=8, S=256: 2e9 pairs ~ milliseconds.
+  per-point gathers. The GPU fold kernel (kernels/fold_triton.py) runs
+  step 3 on frozen candidates without materializing the score blocks.
 
 Recall semantics: a query's true NN is found iff its tile's K candidate
 tiles include the NN's tile. With Morton-compact tiles and default K this
@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from icpx import struct
 
 from icpx.cloud import PAD_COORD
 
@@ -70,13 +70,10 @@ _KD_SEG = 65536
 # below it; the last levels go 2-way (alternating axes) where box
 # compactness matters most for recall. For LARGE builds (>= _FAN4_DEEP
 # tiles) 8 = one fewer sort per build than 16 at recall-identical
-# quality (full-pipeline rmse 5.74e-3 vs 5.75e-3, chip A/B
-# scripts/exp_kd.py 2026-08-19: 189.1 -> 184.6 ms at 1M — the change
-# that crossed the 1M north star). Small builds keep 16: their sorts
-# are cheap and the extra 2-way level measurably helps compactness
-# (40k-pt refine-regime miss 0.21% vs 0.19%). Shrinking the Morton
-# segments instead (_KD_SEG=16384) was faster still but cost real
-# recall (rmse 8.4e-3) — rejected.
+# quality. Small builds keep 16: their sorts are cheap and the extra
+# 2-way level measurably helps compactness (40k-pt refine-regime miss
+# 0.21% vs 0.19%, CPU test scale). Shrinking the Morton segments
+# instead (_KD_SEG=16384) is cheaper still but costs real recall.
 _FAN4_MIN = 8
 _FAN4_DEEP = 8192
 
@@ -174,19 +171,17 @@ def build_kd_index(
     the AABB candidate bound and costs recall (measured 1.4-7%% misses on
     uniform volumes even at K=12); median cuts along each node's widest
     axis give tight non-overlapping boxes, so fewer candidate tiles
-    recover >=99.9%% recall (VERDICT weak #2 / SURVEY §7 hard-part #1).
+    recover >=99.9%% recall.
 
-    Build (measured on chip at 1M pts): one global Morton pre-sort
-    (~18 ms) segments the cloud into <=`_KD_SEG`-point nodes, then
-    log2(T/c0) batched median-cut levels refine each node (~1 ms each —
-    segment-local sorts are ~10x cheaper than global ones). A pure
-    top-down median build costs 260 ms in the global levels alone; the
-    Morton phase replaces them at count-balanced (not space-balanced)
-    boundaries, and the in-node cuts immediately separate any Morton-seam
-    sprawl, so leaf compactness — the thing recall depends on — survives
-    (re-measured vs exact NN at 1M: <=0.08% miss at S=256/K=8 and
-    <=0.013% at S=128/K=12, vs 0.00-0.03% for the pure build at 10x the
-    cost; tests/test_blocknn keeps the >=99.9% recall property).
+    Build: one global Morton pre-sort segments the cloud into
+    <=`_KD_SEG`-point nodes, then log2(T/c0) batched median-cut levels
+    refine each node (segment-local sorts are far cheaper than global
+    ones; a pure top-down median build pays its global levels in full).
+    The Morton phase cuts at count-balanced (not space-balanced)
+    boundaries, and the in-node cuts immediately separate any
+    Morton-seam sprawl, so leaf compactness — the thing recall depends
+    on — survives (tests/test_blocknn keeps the >=99.9% recall
+    property).
     Every level moves data with ONE multi-operand `lax.sort` (key plus
     x/y/z/orig sorted together): no argsort + per-array random gathers,
     which dominated the old build's cost.
@@ -355,8 +350,7 @@ def trim_index(
     guaranteed pure padding, and slicing them off makes all downstream
     per-iteration work scale with the actual cloud size instead of the
     power-of-two padded tile count of `build_kd_index` (a 10M-point
-    cloud otherwise pays 16.8M slots — measured 4.29 s vs ~2.9 s for
-    the full registration on chip).
+    cloud otherwise pays 16.8M slots).
 
     `multiple` rounds the kept tile count up: hierarchical candidate
     ranking wants T % 64 == 0, the coarse phase Tq % 4 == 0.
@@ -381,8 +375,8 @@ def coarsen_index(index: TileIndex, factor: int) -> TileIndex:
 
     For KD indexes with power-of-two tile counts, adjacent tiles are
     siblings, so merged tiles are exactly the parent nodes' compact
-    boxes — one fine build serves every coarser granularity (builds cost
-    ~28 ms at 1M points; this is a reshape plus per-tile reductions).
+    boxes — one fine build serves every coarser granularity (this is a
+    reshape plus per-tile reductions, far cheaper than a build).
     """
     t, s, _ = index.tiles.shape
     if t % factor:
@@ -417,12 +411,12 @@ def _tile_center(query_tiles: jax.Array) -> jax.Array:
 def _score_einsum(q4: jax.Array, r4: jax.Array, score_prec: str) -> jax.Array:
     """The fold's (Tq, Sq, C) x (Tq, S, C) -> (Tq, Sq, S) score matmul.
 
-    The package pins jax_default_matmul_precision=highest (fp32 via
-    ~6 bf16 MXU passes) because coordinate-scale distance expansions
-    cancel catastrophically in bf16. That reasoning is about GLOBAL
-    coordinates; the fold can afford cheaper passes when both operands
-    are centered on the query tile (see callers): "high" = 3-pass
-    (near-f32), "bf16" = 1 native pass on tile-local magnitudes.
+    The package pins jax_default_matmul_precision=highest (true fp32)
+    because coordinate-scale distance expansions cancel catastrophically
+    in bf16. That reasoning is about GLOBAL coordinates; the fold can
+    afford cheaper passes when both operands are centered on the query
+    tile (see callers): "high" = the backend's reduced f32 (TF32 on
+    NVIDIA GPUs), "bf16" = 1 pass on tile-local magnitudes.
     """
     if score_prec == "bf16":
         return jnp.einsum(
@@ -537,8 +531,8 @@ def block_nn(
     qc = _tile_center(query_tiles) if score_prec == "bf16" else None
     q_cen = query_tiles - qc[:, None, :] if qc is not None else query_tiles
 
-    # Augmented query: [-2x, -2y, -2z, 1] so the MXU emits the biased
-    # score ||r||^2 - 2 q.r (see knn_pallas.py). A feature channel adds
+    # Augmented query: [-2x, -2y, -2z, 1] so the matmul emits the biased
+    # score ||r||^2 - 2 q.r. A feature channel adds
     # one contraction lane: [..., -2 w^2 f_q] against [..., f_r] with
     # w^2 f_r^2 folded into the bias row.
     lam2 = jnp.float32(feat_weight) ** 2
@@ -562,7 +556,7 @@ def block_nn(
             )
         else:
             r4 = jnp.concatenate([r, rr[..., None]], axis=2)
-        score = _score_einsum(q4, r4, score_prec)  # (Tq, Sq, S) MXU
+        score = _score_einsum(q4, r4, score_prec)  # (Tq, Sq, S)
         smin = jnp.min(score, axis=2)
         sarg = jnp.argmin(score, axis=2).astype(jnp.int32)
         pos = tid[:, None] * s + sarg  # global sorted position
@@ -619,8 +613,7 @@ def _pad_chunks(query_tiles: jax.Array, max_chunk: int):
 # rank super-tiles (groups of _SUPER_G adjacent tiles — KD subtrees, so
 # their merged boxes are compact parents) first, then rank only the
 # children of the top _SUPER_K super-tiles. Flat ranking is O(Tq * T)
-# and dominated 8M-point registrations (the round-1 falloff, VERDICT
-# weak #10); two levels cost O(Tq * (T/G + K_s*G)).
+# and dominated 8M-point registrations; two levels cost O(Tq * (T/G + K_s*G)).
 _SUPER_G = 64
 _SUPER_K = 4  # top supers expanded; recall-neutral vs 8 (tests), half the pool
 _HIER_MIN_TILES = 8192
@@ -661,10 +654,8 @@ def _rank_pool(q_lo, q_hi, q_cent, index: TileIndex, sup, g, k):
 
     Children of super-tile s are the contiguous id block [s*g, (s+1)*g),
     so per-axis (ts, g) views are row-gathered by `sup` (Tq, K_s) into
-    (Tq, K_s, g) — contiguous-row DMA. Two rejected layouts (measured on
-    chip at 1M/8M): (Tq, P, 3) puts 3 in the lane dim and XLA pads lanes
-    to 128 (19 GB HLO temp at 8M); element gathers (T,)[child] run as
-    scalar gathers (2.1 s at 1M, 6x slower than flat)."""
+    (Tq, K_s, g) — contiguous rows; element gathers (T,)[child] would
+    run as scalar gathers."""
     tq, k_s = sup.shape
     ts = index.n_tiles // g
     box_d = jnp.zeros((tq, k_s, g), jnp.float32)
@@ -772,37 +763,30 @@ def block_nn_payload(
     feat_tiles: Optional[jax.Array] = None,
     feat_weight: float = 1.0,
     score_prec: str = "highest",
-    payload_prec: str = "high",
+    payload_prec: str = "highest",
     payload_xyz: int = 0,
 ) -> Tuple[jax.Array, jax.Array]:
     """Like `block_nn` but returns the matched payload row per query
-    instead of an index — the row is selected in-tile by a one-hot MXU
-    matmul (a per-tile take_along_axis is ~4x slower at 1M points, and a
-    global (N, D) gather needs the index round-trip).
+    instead of an index — the row is selected in-tile by a one-hot
+    matmul (a global (N, D) gather would need the index round-trip).
 
     Used by shard-local paths that cannot gather from a remote array, AND
-    by single-device ICP on large clouds: the (N, D) sorted-table row
-    gather scales super-linearly with table size (55 -> 263 ms/iter from
-    1M -> 8M points), while in-fold selection only touches candidate
-    tiles (A/B on chip at 8M: 282 vs 380 ms/iter full refine). At 1M the
-    coherent gather is slightly ahead (28 vs 32.5 ms/iter) — see
+    by single-device ICP on large clouds, where in-fold selection only
+    touches candidate tiles instead of the whole (N, D) table — see
     ICPConfig.payload_mode.
 
     `cand_tiles`, `query_feat`/`feat_tiles`/`feat_weight` behave exactly
     as in `block_nn` (frozen refine candidates; 4D augmented metric).
 
-    `payload_prec="bf16"` runs the one-hot selection matmul as ONE
-    native bf16 MXU pass (f32 accumulate) instead of the 3-pass "high"
-    emulation. The one-hot operand is exactly representable; the
-    payload VALUES quantize to 8 mantissa bits, so the first
-    `payload_xyz` channels — global coordinates, whose absolute
-    quantization would be cloud-extent-scale — are centered on the
-    query-tile centroid before selection and un-centered in f32 after
-    (requires bf16 scoring, which provides the centroid). MEASURED
-    NEGATIVE (chip A/B at 8M, 2026-08-20): a speed wash (1640 "high"
-    vs 1653 ms full registration, rmse/GT identical) — payload
-    delivery is layout/HBM-traffic-bound, not matmul-pass-bound, so
-    the default stays "high" (exact fp32 payload values for free).
+    `payload_prec="bf16"` runs the one-hot selection matmul as ONE bf16
+    pass (f32 accumulate) instead of true fp32 ("highest", the
+    default: payload values are exact copies). The one-hot operand is
+    exactly representable; the payload VALUES quantize to 8 mantissa
+    bits, so the first `payload_xyz` channels — global coordinates,
+    whose absolute quantization would be cloud-extent-scale — are
+    centered on the query-tile centroid before selection and
+    un-centered in f32 after (requires bf16 scoring, which provides the
+    centroid).
 
     Returns (sqdist (Tq*Sq,), payload (Tq*Sq, D)); inf distance on pad
     or miss (payload zeros).
@@ -903,9 +887,12 @@ def block_nn_payload(
                 preferred_element_type=jnp.float32,
             )
         else:
+            # true fp32 ("highest"): a one-hot row copy must not round
+            # the payload (a reduced-precision f32 pass, TF32 on NVIDIA
+            # GPUs, would keep ~10 mantissa bits)
             onehot = (lane == win[..., None]).astype(jnp.float32)
             cand_pl = jnp.einsum(
-                "tqs,tsd->tqd", onehot, pl, precision="high"
+                "tqs,tsd->tqd", onehot, pl, precision="highest"
             )
         cand_ok = jnp.isfinite(smin)
         better = smin < best_s
@@ -954,7 +941,7 @@ def block_radius_moments(
     normal-estimation primitive.
 
     For every query point, accumulates over all candidate-tile points
-    within `radius`:  count, sum(x), sum(x x^T)  — one weighted MXU matmul
+    within `radius`:  count, sum(x), sum(x x^T)  — one weighted matmul
     per candidate tile against a 10-feature expansion (coordinates are
     tile-centered first, so the E[xx]-E[x]E[x] covariance subtraction is
     numerically safe in fp32).
@@ -999,7 +986,7 @@ def block_radius_moments(
         # everything here is already query-tile-centered, so the bf16
         # single-pass score is safe exactly as in block_nn (the radius
         # TEST tolerates border-neighbor flips; normals average k~10+
-        # neighbors). The moments einsum below stays >= "high": its
+        # neighbors). The moments einsum below stays true fp32: its
         # outputs are covariance entries, not a ranking.
         score = _score_einsum(q4, r4, prec)  # ||r||^2 - 2 q.r
         d = score + qq[..., None]  # true squared distance
@@ -1013,9 +1000,8 @@ def block_radius_moments(
             ],
             axis=2,
         )  # (Tq, S, 10)
-        m_prec = "high" if prec == "bf16" else prec
         moments = moments + jnp.einsum(
-            "tqs,tsf->tqf", w, feat, precision=m_prec
+            "tqs,tsf->tqf", w, feat, precision="highest"
         )
         return moments, None
 

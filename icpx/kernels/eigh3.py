@@ -2,18 +2,15 @@
 
 The reference gets its normal PCA from PCL (`pcl::NormalEstimation`,
 `myicp.cpp:157-167`), which uses a closed-form 3x3 solver internally. A
-LAPACK-style iterative eigensolver is a poor fit for the VPU; the analytic
+LAPACK-style iterative eigensolver is a poor fit for batched SIMD; the analytic
 trigonometric method (Smith 1961 / Eberly) is pure elementwise math that
 `vmap`s over millions of neighborhoods. fp32 throughout.
 
-Round-5 layout note: the core runs in SoA (structure-of-arrays) form —
-six (N,) component vectors in, (N,) component math throughout. The
-original (N, 3, 3)/(N, 3) formulation paid the TPU's T(8, 128) lane
-padding (minor dims 3 -> 128) on every one of its ~30 temporaries:
-measured 216 ms for 8.4M covariances (26 ns/pt, ~4% of any bound) —
-the single largest non-structural cost in the 8M registration
-(scripts/exp_norm5.py). The SoA core moves ~40 un-padded (N,) temps
-instead. The (..., 3, 3) wrappers below keep the public API.
+Layout note: the core runs in SoA (structure-of-arrays) form — six (N,)
+component vectors in, (N,) component math throughout — so its ~40
+temporaries are contiguous (N,) vectors instead of (N, 3, 3)/(N, 3)
+arrays with tiny minor dimensions. The (..., 3, 3) wrappers below keep
+the public API.
 """
 
 from __future__ import annotations
@@ -94,7 +91,7 @@ def _eigenvector_soa(a00, a01, a02, a11, a12, a22, lam):
     vz = pick(c01z, c02z, c12z)
     # Scale-invariant normalization: covariances of millimeter-spacing
     # neighborhoods have cross products ~1e-12, at/below any absolute
-    # epsilon (a round-5 chip regression thresholded the SQUARED norm
+    # epsilon (an earlier version thresholded the SQUARED norm
     # there and sent every 1M-cloud normal to the isotropic fallback,
     # diverging the registration; the AoS original's `/max(nrm, 1e-12)`
     # also under-normalized at that scale). Dividing by the largest
@@ -117,7 +114,7 @@ def _eigenvector_soa(a00, a01, a02, a11, a12, a22, lam):
 def smallest_eigenvector_3x3_soa(a00, a01, a02, a11, a12, a22):
     """((vx, vy, vz), (e_lo, e_mid, e_hi)) — the SoA fast path for
     producers that hold covariance COMPONENTS (e.g. moment folds):
-    never materializes a lane-padded (N, 3, 3)."""
+    never materializes an (N, 3, 3) tensor."""
     e_lo, e_mid, e_hi = eigvalsh3x3_soa(a00, a01, a02, a11, a12, a22)
     v = _eigenvector_soa(a00, a01, a02, a11, a12, a22, e_lo)
     return v, (e_lo, e_mid, e_hi)

@@ -1,15 +1,14 @@
-"""Tiled brute-force nearest-neighbor search — the TPU replacement for the
-reference's KD-tree (`pcl::search::KdTree`, `myicp.cpp:158`) and for the
+"""Tiled brute-force nearest-neighbor search — the accelerator replacement
+for the reference's KD-tree (`pcl::search::KdTree`, `myicp.cpp:158`) and for the
 correspondence step the reference left as a TODO (`myicp.cpp:128-131`).
 
-Design: a KD-tree is pointer-chasing and branch-heavy — hostile to the MXU
-and to XLA's static-shape model. Instead the (query x ref) squared-distance
-matrix is computed tile-by-tile as a matmul (the `-2 q @ r^T` term rides the
-MXU; norms are rank-1 updates fused by XLA), keeping a running top-k per
+Design: a KD-tree is pointer-chasing and branch-heavy — hostile to matrix
+units and to XLA's static-shape model. Instead the (query x ref) squared-distance
+matrix is computed tile-by-tile as a matmul (the `-2 q @ r^T` term is a
+GEMM; norms are rank-1 updates fused by XLA), keeping a running top-k per
 query row. Everything is `lax.scan` over static tiles: no dynamic shapes,
 no data-dependent control flow. Cost O(Nq * Nr); for multi-million-point
-clouds use `icpx.kernels.voxel` (voxel-hash) which bounds candidates per
-query. A Pallas fused variant lives in `icpx.kernels.knn_pallas`.
+clouds use the block (tile-index) path in `icpx.kernels.blocknn`.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ def pairwise_sqdist(q: jax.Array, r: jax.Array) -> jax.Array:
     """(Nq, 3) x (Nr, 3) -> (Nq, Nr) squared euclidean distances.
 
     ||q - r||^2 = ||q||^2 + ||r||^2 - 2 q.r ; the cross term is a matmul
-    (MXU), the norms broadcast. Clamped at 0 against fp cancellation.
+    (a GEMM), the norms broadcast. Clamped at 0 against fp cancellation.
     """
     qq = jnp.sum(q * q, axis=-1, keepdims=True)  # (Nq, 1)
     rr = jnp.sum(r * r, axis=-1, keepdims=True).T  # (1, Nr)
@@ -125,23 +124,9 @@ def nearest_neighbor(
     ref_mask: Optional[jax.Array] = None,
     tile_q: int = 2048,
     tile_r: int = 4096,
-    use_pallas: Optional[bool] = None,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Single nearest neighbor (k=1 fast path).
-
-    Dispatches to the fused Pallas kernel on TPU (default) and to the jnp
-    tiled scan elsewhere. Returns (sqdist (Nq,), index (Nq,)).
-    """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        from icpx.kernels.knn_pallas import nn_pallas
-
-        # forward the tiling knobs (nn_pallas clamps them to VMEM-safe
-        # hardware-aligned values)
-        return nn_pallas(
-            query, ref, ref_mask=ref_mask, tile_q=tile_q, tile_r=tile_r
-        )
+    """Single nearest neighbor (k=1 fast path): the jnp tiled scan.
+    Returns (sqdist (Nq,), index (Nq,))."""
     return _nearest_neighbor_jnp(
         query, ref, ref_mask=ref_mask, tile_q=tile_q, tile_r=tile_r
     )
@@ -156,7 +141,7 @@ def _nearest_neighbor_jnp(
     tile_q: int = 2048,
     tile_r: int = 4096,
 ) -> Tuple[jax.Array, jax.Array]:
-    """jnp tiled-scan NN (runs anywhere; the CPU-mesh test path)."""
+    """jnp tiled-scan NN: a running (min, argmin) over reference tiles."""
     nq, nr = query.shape[0], ref.shape[0]
     tile_q = min(tile_q, _round_up(nq, 8))
     tile_r = min(tile_r, _round_up(nr, 128))

@@ -1,6 +1,6 @@
 """kNN + PCA surface-normal estimation.
 
-TPU-native equivalent of `pcl::NormalEstimation` with `setKSearch(k)`
+The batched equivalent of `pcl::NormalEstimation` with `setKSearch(k)`
 (`myicp.cpp:152-172`, k=10 at `myicp.cpp:160`): for each point, gather its
 k nearest neighbors (self included, matching PCL's kNN semantics), form the
 3x3 neighborhood covariance, and take the smallest-eigenvalue direction via
@@ -89,7 +89,6 @@ def _block_radius_cov(xyz, mask, k):
     Returns (count (N,), cov (N, 3, 3)).
     """
     from icpx.kernels.blocknn import block_radius_moments, build_kd_index
-    from icpx.kernels.blocknn_pallas import use_fused_default
     from icpx.kernels.voxel import auto_cell_size
 
     n = xyz.shape[0]
@@ -99,16 +98,9 @@ def _block_radius_cov(xyz, mask, k):
     idx = build_kd_index(xyz, mask, tile_size=128)
     scale = 3.0 * float(np.sqrt(max(k, 1) / 10.0))
     radius = auto_cell_size(xyz, mask, scale=scale)
-    if use_fused_default() and idx.n_tiles % 4 == 0:
-        from icpx.kernels.blocknn_pallas import block_radius_moments_fused
-
-        cnt_s, _, cov_s = block_radius_moments_fused(
-            idx.tiles, idx, radius, k_tiles=8, group=4, u_max=32
-        )
-    else:
-        cnt_s, _, cov_s = block_radius_moments(
-            idx.tiles, idx, radius, k_tiles=8
-        )
+    cnt_s, _, cov_s = block_radius_moments(
+        idx.tiles, idx, radius, k_tiles=8
+    )
     # unsort: sorted position -> original row (pads dropped)
     order = idx.order
     safe = jnp.where(order >= 0, order, n)

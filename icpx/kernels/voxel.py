@@ -1,7 +1,7 @@
 """Voxel-hash nearest-neighbor — the O(N) replacement for the KD-tree at
-1M-10M points (SURVEY §2.2 "TPU-friendly NN", §7 hard-part #1).
+1M-10M points (SURVEY §2.2, §7 hard-part #1).
 
-A KD-tree's pointer-chasing traversal cannot map onto the TPU's static-
+A KD-tree's pointer-chasing traversal cannot map onto XLA's static-
 shape, vector-parallel model. Instead:
 
   build (once per target cloud; the target is fixed across ICP iterations):
@@ -16,7 +16,7 @@ shape, vector-parallel model. Instead:
   query (every iteration):
     for each of the 27 neighbor cells: hash, gather its B candidate
     indices + coordinates, fold squared distances into a running
-    (min, argmin). 27*B candidates/query, pure VPU + gathers — no N^2.
+    (min, argmin). 27*B candidates/query, elementwise math + gathers — no N^2.
 
 Semantics: returns the exact NN whenever it lies within the 3x3x3 cell
 neighborhood and within the first B entries of its bucket; with the
@@ -36,7 +36,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from icpx import struct
 
 from icpx.cloud import PAD_COORD
 

@@ -2,8 +2,7 @@
 
 The host-driven frontend (`frontend.run_odometry`) dispatches one
 registration per frame — flexible, but every frame pays a host round
-trip (catastrophic over a remote TPU tunnel, still non-trivial locally).
-This version runs the ENTIRE sequence inside a single `lax.scan`:
+trip. This version runs the ENTIRE sequence inside a single `lax.scan`:
 
   * frames arrive stacked (F, N, 3) with normals precomputed in one
     vmapped pass;
@@ -16,12 +15,12 @@ This version runs the ENTIRE sequence inside a single `lax.scan`:
 
 Trade-offs vs the host loop: fixed per-frame iteration budget, no map
 mode / loop closures (run those host-side on the returned keyframes).
-NN against the keyframe follows `ICPConfig.nn_method` ("auto"): one
-fused Pallas brute pass at LiDAR scan sizes, and per-step KD tile-index
+NN against the keyframe follows `ICPConfig.nn_method` ("auto"): the
+tiled brute scan at small scan sizes, and per-step KD tile-index
 builds inside the scan body above `block_auto_threshold` points — both
 static-shape, both inside the one compiled program.
 
-Parity with the host frontend (VERDICT round-1 item 7): the program
+Parity with the host frontend: the program
 returns the MEASURED keyframe-to-frame registration per step (`edge_rel`)
 plus the final-segment carry, so `CompiledOdometry.edge_list()`
 reconstructs exactly the edge list `frontend.run_odometry` builds —
@@ -37,18 +36,17 @@ from typing import List, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from icpx import struct
 
 from icpx.geometry.se3 import SE3
-from icpx.kernels.knn import _nearest_neighbor_jnp
-from icpx.kernels.knn_pallas import nn_pallas
+from icpx.kernels.knn import nearest_neighbor
 from icpx.odometry.frontend import blend_velocity
 from icpx.registration.icp import ICPConfig, _icp_scan, gicp_cov_rot
 
 
 def resolve_odo_freeze(n_pts: int, freeze: Optional[bool] = None) -> bool:
-    """Per-frame frozen-candidate default: on from 16384-pt scans (chip
-    ladder 2026-08-21 — see run_odometry_compiled docstring)."""
+    """Per-frame frozen-candidate default: on from 16384-pt scans (see
+    run_odometry_compiled docstring)."""
     return n_pts >= 16384 if freeze is None else freeze
 
 
@@ -61,16 +59,15 @@ def resolve_odo_refine_stride(
     resolution).
 
     Explicit `stride` wins; an explicitly set `config.refine_stride`
-    (non-auto) wins next; otherwise the measured scan-regime ladder —
-    4 from 131072-pt scans, 2 from 65536, else 1. Chip A/Bs 2026-08-21
-    (in-session, ATE-gated): 131k 50.9 -> 65.6 fps (+29%, stride 8 adds
-    only +1%), 65k 104.5 -> 118.5 (+13%), 32k/16k a wash, 8k costs ATE
-    (0.114 -> 0.135) — the subsampled phase pays off only where the
-    per-iteration fold dominates the frame. This inverts the single-pair
-    auto (retired to stride 1 at 8M: cold-start registrations pay extra
-    iterations for the noisier solve statistics); the odometry frames
-    are WARM-started, so the stride mostly thins already-converging
-    iterations instead of adding new ones."""
+    (non-auto) wins next; otherwise the scan-regime ladder — 4 from
+    131072-pt scans, 2 from 65536, else 1 (tuned before the port to the
+    H100; not yet re-chosen on it). The subsampled phase pays off only where the
+    per-iteration fold dominates the frame; at small scans it costs ATE.
+    This inverts the single-pair auto (stride 1: cold-start
+    registrations pay extra iterations for the noisier solve
+    statistics); the odometry frames are WARM-started, so the stride
+    mostly thins already-converging iterations instead of adding new
+    ones."""
     if stride:
         return stride
     if config.refine_stride:
@@ -83,9 +80,10 @@ def resolve_odo_q_tile(config: ICPConfig, n_pts: int, q_tile: int = 0) -> int:
 
     Explicit `q_tile` wins; an explicitly tuned `config.block_q_tile`
     (anything but the class default) wins next — the ladder must not
-    silently override a user's tiling (review r5); otherwise the
-    measured scan-regime ladder: 256 from 65536-pt scans, 128 from
-    8192, else the config resolution."""
+    silently override a user's tiling; otherwise the scan-regime
+    ladder: 256 from 65536-pt scans, 128 from 8192, else the config
+    resolution (tuned before the port to the H100; not yet re-chosen on
+    it)."""
     if q_tile:
         return q_tile
     if config.block_q_tile != ICPConfig.block_q_tile:
@@ -180,23 +178,20 @@ def run_odometry_compiled(
     single-pair path's frozen refine candidates rely on after coarse
     alignment. Misses follow block-NN semantics (genuine-but-larger
     distances, robust-gated). None = auto: on from 16384-pt scans up
-    (chip ladder 2026-08-21: per-frame ranking beats per-iteration
-    ranking at >=16k — 65k 61 -> 75 fps, 131k 27 -> 35; at 8k the
-    per-frame overhead loses, 312 -> 266).
+    (below that the per-frame ranking overhead loses to per-iteration
+    ranking; tuned before the port to the H100, not yet re-chosen on
+    it).
 
     `q_tile` overrides the source query-tile size; 0 = auto: 256 from
     65536-pt scans, 128 from 8192, else `config.resolve_q_tile`. The
     SCAN-regime crossover differs from the single-pair tuning (Sq=64
     at <=2M registration points): simulated-LiDAR scan density favors
-    wider tiles at every measured scan size (chip ladder: 8k 312 ->
-    379 fps, 16k 177 -> 300, 32k 153 -> 186, 65k 93 -> 103 (q256),
-    131k 48 -> 52 (q256), ATE unchanged).
+    wider tiles at the same ATE.
 
     `refine_stride` (block path): within-tile row stride for the bulk of
     each per-frame registration's iterations, full resolution for the
     last `config.refine_full_iters` — see `resolve_odo_refine_stride`
-    for the measured ladder (0 = auto: 4 from 131k-pt scans, 2 from
-    65k; chip 2026-08-21: 131k 50.9 -> 65.6 fps at equal ATE).
+    for the ladder (0 = auto: 4 from 131k-pt scans, 2 from 65k).
     """
     f = frames_xyz.shape[0]
     n_pts = frames_xyz.shape[1]
@@ -205,22 +200,17 @@ def run_odometry_compiled(
     refine_stride = resolve_odo_refine_stride(config, n_pts, refine_stride)
     gicp = config.objective == "gicp"
     aux_rot = gicp_cov_rot if gicp else None
-    # Brute NN is right for LiDAR-scale scans (8-16k points: one fused
-    # Pallas pass beats index builds); above the block threshold the
-    # O(N^2)-per-frame cost would dominate (round-2 VERDICT weak #7), so
-    # large scans use KD tile indexes — the SOURCE index built per step
-    # inside the scan body, the KEYFRAME index built once per keyframe
-    # SPAWN and loop-carried (VERDICT r4 weak #2: the keyframe cloud
-    # only changes on spawn, yet the round-4 loop rebuilt its index — and
-    # re-sorted its payload — every frame). Everything stays one
-    # compiled XLA program.
+    # Brute NN serves small scans (below block_auto_threshold there are
+    # too few tiles to rank); above it the O(N^2)-per-frame cost would
+    # dominate, so large scans use KD tile indexes — the SOURCE index
+    # built per step inside the scan body, the KEYFRAME index built once
+    # per keyframe SPAWN and loop-carried (the keyframe cloud only
+    # changes on spawn). Everything stays one compiled XLA program.
     use_block = config.resolve_nn(n_pts) == "block"
 
     def nn_factory(t_xyz, t_mask, t_n):
         def nn_fn(p):
-            d2, idx = nn_pallas(
-                p, t_xyz, ref_mask=t_mask
-            ) if jax.default_backend() == "tpu" else _nearest_neighbor_jnp(
+            d2, idx = nearest_neighbor(
                 p, t_xyz, ref_mask=t_mask,
                 tile_q=config.tile_q, tile_r=config.tile_r,
             )
@@ -358,7 +348,7 @@ def run_odometry_compiled(
         # Solve in keyframe-centroid coordinates (same conjugation as
         # register()/register_batch): sensor scans are near the origin,
         # but a world-frame or large-offset sequence would otherwise lose
-        # fp32 precision in the squared-distance expansions (ADVICE r1).
+        # fp32 precision in the squared-distance expansions.
         # Block path: the centroid is part of the spawn-time cache (it is
         # a pure function of the keyframe, fixed per segment).
         if use_block:

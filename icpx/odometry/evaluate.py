@@ -2,7 +2,7 @@
 
 The reference has no quantitative evaluation beyond printing a transform
 (`myicp.cpp:146-149`); these are the formal replacements used by the
-bench/odometry configs (BASELINE.md schema's `ate`).
+bench/odometry configs (the ATE gate of bench.py --odometry).
 """
 
 from __future__ import annotations

@@ -163,9 +163,9 @@ def simulate_scans(
     """Sensor-frame scans: world points within range of each pose, moved
     into the sensor frame, subsampled to a fixed budget + noise.
 
-    Real-sensor pathologies (round-3 VERDICT missing #4 — the closest a
-    zero-egress environment gets to a real velodyne capture), all opt-in
-    so the measured BASELINE configs keep their geometry:
+    Real-sensor pathologies (the closest a zero-egress environment gets
+    to a real velodyne capture), all opt-in so the benchmark configs
+    keep their geometry:
 
     * `occlusion=True` rasterizes returns onto a spinning-LiDAR beam
       grid (`n_beams` elevation rows x `azimuth_bins` columns, KITTI's
@@ -279,7 +279,7 @@ def write_kitti_sequence(
     and a poses file of 3x4 row-major world_T_frame lines.
 
     This is the fixture generator that closes the real-dataset ingest
-    loop in zero-egress environments (round-2 VERDICT missing #6): the
+    loop in zero-egress environments: the
     bytes on disk are indistinguishable from a KITTI capture, so
     `load_kitti_sequence` / `icpx odometry --velodyne-dir` exercise the
     identical code path a real dataset would (only the geometry is

@@ -1,7 +1,7 @@
 """Global map maintenance: fixed-capacity voxel-deduplicated accumulation.
 
-Completes the scan-to-map half of the odometry engine (BASELINE.md's
-"multi-host partitioned map" config feeds from this): keyframe clouds are
+Completes the scan-to-map half of the odometry engine (the partitioned
+map of distributed/map_ep.py feeds from this): keyframe clouds are
 transformed into the world frame and merged into a bounded map that keeps
 at most one point per voxel, preferring the OLDEST point (map stability —
 new observations of a mapped voxel don't churn it).
@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from icpx import struct
 
 from icpx.cloud import PAD_COORD, PointCloud
 from icpx.geometry.se3 import SE3

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from icpx import struct
 
 from icpx.geometry.se3 import SE3
 
@@ -280,7 +280,7 @@ def pad_edges(graph: PoseGraph, multiple: int) -> PoseGraph:
 #
 # The dense path above assembles a (M, M, 6, 6) Hessian and dense-solves
 # 6Mx6M — exact, fine for tens of keyframes, O(M^2) memory / O(M^3) solve
-# beyond (VERDICT round-1 weak #5). The sparse path never materializes the
+# beyond. The sparse path never materializes the
 # off-diagonal structure: per-edge (6,6) blocks stay edge-indexed, the
 # normal system is only ever applied as a matvec (scatter-add over edges),
 # and a block-Jacobi-preconditioned conjugate gradient solves it. Robust
@@ -517,7 +517,7 @@ def schur_condense(
 class SlidingWindowBackend:
     """Incremental pose-graph backend with automatic Schur marginalization
     (SURVEY §2.3 P9 "incremental"; wires `schur_condense` into the
-    frontend — VERDICT round-1 missing #5).
+    frontend).
 
     Keyframes enter via `add_keyframe`/`add_edge`; once the active window
     exceeds `window` nodes, the oldest node is marginalized: every factor

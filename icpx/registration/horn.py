@@ -1,6 +1,6 @@
 """Closed-form rigid registration with known correspondences (Horn/Kabsch).
 
-TPU-native rebuild of the reference's header-only `registrateNPoint`
+Batched JAX rebuild of the reference's header-only `registrateNPoint`
 (`regist.h:8-72`): weighted centroids, 3x3 cross-covariance, SVD with the
 reflection (det) fix, t = q_bar - R p_bar. Unlike the reference (which maps
 dst onto src with a transposed convention, `regist.h:7`), this maps

@@ -1,4 +1,4 @@
-"""Iterate-to-convergence ICP: the TPU rebuild of `MyICP::RegisterSymm`
+"""Iterate-to-convergence ICP: the JAX rebuild of `MyICP::RegisterSymm`
 (`myicp.cpp:100-150`) plus the point-to-point mode the reference declared
 but never finished (`myicp.h:18`, stub at `myicp.cpp:43-59`).
 
@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from icpx import struct
 
 from icpx.cloud import PointCloud
 from icpx.geometry.se3 import SE3
@@ -39,12 +39,17 @@ from icpx.registration.step import (
 )
 
 OBJECTIVES = ("symmetric", "p2plane", "p2p", "gicp")
+PAYLOAD_MODES = ("auto", "gather", "infold", "fold")
 
 
 @dataclasses.dataclass(frozen=True)
 class ICPConfig:
     """Static hyperparameters. Reference hard-codings become named fields
-    with the reference values as defaults (SURVEY.md §5.6)."""
+    with the reference values as defaults (SURVEY.md §5.6).
+
+    Size thresholds, tile sizes and phase schedules below were tuned
+    before the port to the H100 and have not yet been re-chosen on it;
+    each comment keeps the design reason only."""
 
     objective: str = "symmetric"
     max_iters: int = 10  # myicp.cpp:6
@@ -67,23 +72,19 @@ class ICPConfig:
     # with a flat objective direction (corridors, smooth ground) ICP
     # otherwise WANDERS along it, chasing its init + IRLS bias. 0 = off.
     degeneracy_clamp: float = 0.0
-    # NN search: "brute" = tiled O(N^2) (Pallas-fused on TPU), "block" =
-    # spatially-tiled IVF-style O(N*K*S) (the large-cloud path), "auto"
-    # picks block above `block_auto_threshold` target points.
+    # NN search: "brute" = tiled O(N^2) XLA scan, "block" = spatially-
+    # tiled IVF-style O(N*K*S) (the large-cloud path), "auto" picks block
+    # at or above `block_auto_threshold` target points (below it clouds
+    # have too few tiles to rank).
     nn_method: str = "auto"
-    # Reference tile size S = 128 (round-2 default; was 256): halved tiles
-    # give the same recall from ~2x fewer candidate points per query —
-    # measured 4.3M pts/s at 1M (vs 4.0M at S=256) with refine-regime
-    # (aligned-clouds) volume recall 99.9%+ at k=6 candidates.
+    # Reference tile size S: smaller tiles give the same recall from
+    # fewer candidate points per query.
     block_tile: int = 128
     block_q_tile: int = 64  # query tile size Sq (smaller = tighter boxes)
     # Query tile size for LARGE clouds (>= payload_infold_threshold
-    # points): what matters for recall is a tile's SPATIAL extent, which
-    # shrinks with density — at 8M a 128-point tile is tighter than 1M's
-    # 64-point tile (chip A/B 2026-08-19: 8M wall -8% AND rmse 4.07e-3
-    # vs 4.13e-3; at 1M the same Sq=128 costs recall, rmse 1.08e-2 —
-    # and Sq=256 at 8M costs it too, rmse 8.3e-3). 0 = always use
-    # block_q_tile.
+    # points): recall depends on a tile's SPATIAL extent, which shrinks
+    # with density, so dense clouds afford more points per query tile.
+    # 0 = always use block_q_tile.
     block_q_tile_large: int = 128
     block_k: int = 8
     # Candidate-tile count for refine-phase iterations (after the coarse
@@ -110,119 +111,57 @@ class ICPConfig:
     feat_nn_weight: float = 0.0
     # Rank refine-phase candidate tiles ONCE at the coarse-aligned
     # positions instead of every iteration (safe: post-coarse motion is
-    # well under a tile extent; selection is ~15% of a 1M registration).
+    # well under a tile extent).
     freeze_refine_candidates: bool = True
     # Multi-resolution refine (the classic pyramid schedule, cf.
     # Rusinkiewicz & Levoy 2001 "Efficient ICP variants"): run the bulk
     # of the refine iterations on a within-tile row subsample of the
     # source (every refine_stride-th row of each query tile — the tile
     # boxes and frozen candidate lists stay valid), then at most
-    # `refine_full_iters` at full resolution. Pose accuracy needs
-    # statistical mass, not every point (estimate noise ~ 1/sqrt(N));
-    # the full-res tail polishes and produces full-resolution
-    # diff/rmse/inlier statistics. `diff` is a SUM over points, so the
-    # mid phase gates on diff_threshold / stride; rmse-based stops are
-    # scale-invariant. refine_stride: 1 = off, 0 = auto — which now
-    # resolves to 1 everywhere: the chip A/B the advisor asked for
-    # (8M, 2026-08-20) measured stride 2 at 1843 ms / 6 iters vs
-    # stride 1 at 1636 ms / 4 iters, identical rmse — the subsampled
-    # mid phase converges SLOWER (noisier solve statistics) and the
-    # extra iterations cost more than the per-iteration saving. The
-    # knob stays for explicit use (a stride-2 iteration IS ~35%
-    # cheaper; workloads with iteration budgets to burn may still
-    # want it).
+    # `refine_full_iters` at full resolution. `diff` is a SUM over
+    # points, so the mid phase gates on diff_threshold / stride;
+    # rmse-based stops are scale-invariant. refine_stride: 1 = off,
+    # 0 = auto, which resolves to 1: on cold-start pairs the subsampled
+    # mid phase needed more iterations than it saved.
     refine_stride: int = 0
     refine_full_iters: int = 2
     # retired auto-gate size (auto now always resolves to stride 1);
     # kept so existing configs stay constructible
     refine_stride_threshold: int = 2 * 1024 * 1024
-    # MEASURED NEGATIVE (chip 2026-08-19, NOTES.md): pre-gathering the
-    # frozen candidate tiles into dense (K, Tq, S, ·) arrays so refine
-    # iterations read static slices instead of re-gathering rows was a
-    # wash at 8M (1736.5 vs 1735.3 ms) and -6 ms at 1M — XLA's
-    # contiguous-row tile gathers are already near-DMA speed; the fold
-    # cost lives in the score/select einsums, not the gathers.
-    #
-    # MXU precision of the NN score einsum: the package default pins
-    # matmuls to "highest" (~6 bf16 passes emulating fp32) because
-    # coordinate-scale squared-distance expansions cancel
-    # catastrophically in bf16. "high" = 3 passes (near-f32); "bf16" =
-    # ONE native pass on query-tile-CENTERED coordinates, where the
-    # expansion's terms scale with the local tile extent and the
-    # rounding error stays a small fraction of a point spacing —
-    # misses remain genuine near-ties. Applies to block-NN correspondence
-    # scoring only (solve/normals stay fp32). Chip A/B 2026-08-19
-    # (exp_tiles): rmse/GT IDENTICAL to "highest" at 1M AND 8M, wall
-    # 190.5->175.7 ms / 1736->1639 ms — the MXU accumulates bf16
-    # products in f32. "auto" = bf16 on accelerators; CPU (tests) keeps
-    # "highest" because CPU bf16 emulation lacks the f32-accumulate
-    # guarantee (measured rmse floor raise at 40k on CPU).
+    # Precision of the block-NN score einsum. "highest" = true fp32 (the
+    # package default); "bf16" = one bf16 pass with f32 accumulation on
+    # query-tile-CENTERED coordinates, where the expansion's terms scale
+    # with the local tile extent, so rounding stays a small fraction of
+    # a point spacing and misses remain genuine near-ties; "high" = the
+    # backend's reduced-precision f32 (TF32 on NVIDIA GPUs). "auto" =
+    # "highest" on every backend. Applies to correspondence scoring only
+    # (solve/normals stay fp32).
     score_precision: str = "auto"
     # How matched target rows (coords + normals/covs) reach the solve:
     # "gather" = one coherent (N, 3+D) sorted-table row gather per
-    # iteration (fastest at <=1M: 28 vs 32.5 ms/iter); "infold" = one-hot
-    # MXU selection inside the NN fold, table-size-independent (the
-    # gather scales super-linearly: 263 ms/iter at 8M vs 282 total for
-    # the whole in-fold refine — chip A/B 2026-08-19); "auto" switches to
-    # infold at >= payload_infold_threshold target points.
+    # iteration; "infold" = one-hot selection inside the XLA NN fold,
+    # independent of table size; "fold" = the fused GPU kernel
+    # (kernels/fold_triton.py) on frozen-candidate phases. "auto" = fold
+    # on a GPU from `fold_threshold` target points, else infold from
+    # `payload_infold_threshold`, else gather.
     payload_mode: str = "auto"
     payload_infold_threshold: int = 2 * 1024 * 1024
-    # Size from which auto payload/moments resolve to the take-6 VMEM
-    # kernels on TPU. Separate from payload_infold_threshold (which
-    # also gates the Sq=128 large-query tiles — Sq=128 LOSES at 1M):
-    # the stacked vmem+mom A/B won at 1M (164.1 vs 168.7-170.9 ms,
-    # repeated) with Sq=64 kept.
-    vmem_threshold: int = 1024 * 1024
-    # Precision of the infold one-hot payload-selection matmul: "high"
-    # (3-pass, default) or "bf16" (1 native MXU pass; matched coords are
-    # query-tile-centered before selection so quantization is
-    # tile-local). Chip A/B at 8M (2026-08-20, exp_tiles): a WASH —
-    # 1640 vs 1653 ms full registration, rmse/GT identical — the
-    # payload cost is layout/traffic-bound, not matmul-pass-bound, so
-    # "auto" keeps "high" (fp32-exact payload values for free).
+    fold_threshold: int = 1024 * 1024
+    # Precision of the infold one-hot payload-selection matmul:
+    # "highest" (true fp32, so payload values are exact copies) or
+    # "bf16" (one bf16 pass; matched coords are query-tile-centered
+    # before selection so quantization is tile-local). "auto" = highest.
     payload_prec: str = "auto"
-    # Moment-accumulation execution for in-jit normals: "xla" folds via
-    # jnp einsums (materializes (Tq,Sq,S) weight tensors through HBM),
-    # "vmem" uses the take-6 Pallas kernel (per-tile candidates, fold in
-    # VMEM; f32-roundoff-identical moments). "auto" resolves per backend
-    # after the round-4 chip A/B.
-    moments_mode: str = "auto"
-    # Chip A/B 2026-08-20 (compiled odometry): block beats the O(N^2)
-    # brute score at every LiDAR scan size measured — 16384-pt scans
-    # 88 ms / 228 fps vs 370 ms / 54 fps, and 8192-pt scans 62 ms /
-    # 321 fps vs 152 ms / 131 fps (per-step in-jit KD builds included).
-    # The old 32768 cutoff was set before the q-form/fan-4 build cuts
-    # made small builds cheap. Below 8192 the brute fused Pallas pass
-    # keeps the edge (cat-scale clouds have too few tiles to rank).
     block_auto_threshold: int = 8192
-    # Tile partitioner: "kd" (median-cut, compact boxes — measured 0.01%
-    # NN miss at the defaults vs ~5% for Morton ranges on uniform volumes)
-    # or "morton" (cheaper build).
+    # Tile partitioner: "kd" (median-cut, compact boxes — 0.01% NN miss
+    # at the defaults vs ~5% for Morton ranges on uniform volumes) or
+    # "morton" (cheaper build).
     tile_index: str = "kd"
     # Partitioner for the SOURCE (query) tiling only; "" = tile_index.
-    # Hypothesis was that query-tile sprawl only loosens candidate
-    # ranking, so a Morton source build (1 global sort vs ~7) could be
-    # free speed. MEASURED LOSER (chip, scripts/exp_srcmorton.py,
-    # 2026-08-19): sprawling query boxes dilute the shared top-k tile
-    # list enough to cost real recall — 1M 186.6->178.8 ms but rmse
-    # 5.7e-3 -> 1.6e-2; 8M 1737->1667 ms but rmse 4.1e-3 -> 9.5e-3
-    # (GT still recovered; the rmse is inflated miss distances). Same
-    # class of recall loss as the rejected _KD_SEG=16384 — "" stands.
+    # A Morton source build is one global sort instead of ~7, but its
+    # sprawling query boxes dilute the shared top-k tile list and cost
+    # recall (GT still recovered, rmse inflated by miss distances).
     src_tile_index: str = ""
-    # Fused Pallas fold (TPU): "auto" = on when the default backend is not
-    # CPU, "on"/"off" force. The fused kernel groups `block_group` query
-    # tiles per program over a deduplicated candidate union of up to
-    # `block_u_max` ref tiles (kernels/blocknn_pallas.py; the measured
-    # verdict is the fused fold only TIES the XLA fold — it stays opt-in
-    # for its small recall edge, see that module's docstring).
-    block_fused: str = "auto"
-    block_group: int = 4
-    # Query tiles per program for the take-6 VMEM fold/moments kernels.
-    # 8 was the pre-S-minor-layout ceiling (the old payload blocks
-    # wasted 16x VMEM); the transposed layouts admit 16 — A/B'd on chip
-    # before changing the default.
-    vmem_group: int = 8
-    block_u_max: int = 32
     tile_q: int = 2048
     tile_r: int = 4096
 
@@ -235,19 +174,12 @@ class ICPConfig:
             raise ValueError("tile_index must be kd|morton")
         if self.src_tile_index not in ("", "kd", "morton"):
             raise ValueError("src_tile_index must be ''|kd|morton")
-        if self.block_fused not in ("auto", "on", "off"):
-            raise ValueError("block_fused must be auto|on|off")
-        if self.payload_mode not in (
-            "auto", "gather", "infold", "select", "vmem", "vmem7"
-        ):
+        if self.payload_mode not in PAYLOAD_MODES:
             raise ValueError(
-                "payload_mode must be auto|gather|infold|select|vmem|"
-                "vmem7"
+                "payload_mode must be " + "|".join(PAYLOAD_MODES)
             )
-        if self.moments_mode not in ("auto", "xla", "vmem"):
-            raise ValueError("moments_mode must be auto|xla|vmem")
-        if self.payload_prec not in ("auto", "high", "bf16"):
-            raise ValueError("payload_prec must be auto|high|bf16")
+        if self.payload_prec not in ("auto", "highest", "bf16"):
+            raise ValueError("payload_prec must be auto|highest|bf16")
         if self.score_precision not in ("auto", "highest", "high", "bf16"):
             raise ValueError(
                 "score_precision must be auto|highest|high|bf16"
@@ -269,13 +201,6 @@ class ICPConfig:
         k = kind or self.tile_index
         return build_kd_index if k == "kd" else build_tile_index
 
-    def resolve_fused(self) -> bool:
-        if self.block_fused != "auto":
-            return self.block_fused == "on"
-        from icpx.kernels.blocknn_pallas import use_fused_default
-
-        return use_fused_default()
-
     def resolve_nn(self, tgt_capacity: int) -> str:
         if self.nn_method != "auto":
             return self.nn_method
@@ -286,9 +211,7 @@ class ICPConfig:
     def resolve_score_prec(self) -> str:
         if self.score_precision != "auto":
             return self.score_precision
-        import jax
-
-        return "highest" if jax.default_backend() == "cpu" else "bf16"
+        return "highest"
 
     def resolve_q_tile(self, capacity: int) -> int:
         if (
@@ -299,22 +222,17 @@ class ICPConfig:
         return self.block_q_tile
 
     def resolve_payload(self, tgt_capacity: int) -> str:
-        # Auto above the large-cloud threshold: the take-6 VMEM fold
-        # (chip A/B 2026-08-20, NOTES round-4: 8M full pipeline 1516.7
-        # ms vmem vs 1634.9 infold vs 1585.9 select). CPU keeps the XLA
-        # infold (the Pallas kernel would run in interpret mode). At
-        # 1M the kernels are a wash (167.6 vmem / 165.7-170.2 gather
-        # across runs) — below the threshold the coherent row gather
-        # stays the measured default.
+        # The fused fold kernel compiles only for NVIDIA GPUs; elsewhere
+        # (the CPU test backend) auto keeps the XLA paths.
         if self.payload_mode != "auto":
             return self.payload_mode
         import jax
 
         if (
-            jax.default_backend() == "tpu"
-            and tgt_capacity >= self.vmem_threshold
+            jax.default_backend() == "gpu"
+            and tgt_capacity >= self.fold_threshold
         ):
-            return "vmem"
+            return "fold"
         if tgt_capacity >= self.payload_infold_threshold:
             return "infold"
         return "gather"
@@ -322,37 +240,15 @@ class ICPConfig:
     def resolve_refine_stride(
         self, src_capacity: int, tgt_capacity: int
     ) -> int:
-        # Auto = 1 (off) at every size: the 8M chip A/B (NOTES round-4)
-        # measured auto-stride-2 LOSING end-to-end — the subsampled mid
-        # phase needs more iterations than it saves per iteration.
-        # Explicit strides are honored unchanged.
+        # Auto = 1 (off) at every size; explicit strides are honored.
         if self.refine_stride:
             return self.refine_stride
         return 1
 
-    def resolve_moments(self, capacity: int = 0) -> str:
-        # Auto = the take-6 VMEM moments kernel on TPU for large clouds
-        # (chip A/B 2026-08-20: 8M full pipeline 1584.9 ms vs 1630.6
-        # xla; stacked with the vmem fold: 1473.5). At 1M the delta is
-        # inside session noise (167.8 vs 170.4), so the threshold
-        # matches the payload one; CPU always folds in XLA.
-        if self.moments_mode != "auto":
-            return self.moments_mode
-        import jax
-
-        if (
-            jax.default_backend() == "tpu"
-            and capacity >= self.vmem_threshold
-        ):
-            return "vmem"
-        return "xla"
-
     def resolve_payload_prec(self) -> str:
-        # "auto" = "high": bf16 selection measured as a speed WASH at 8M
-        # (payload delivery is traffic-bound), so exact fp32 values win.
         if self.payload_prec != "auto":
             return self.payload_prec
-        return "high"
+        return "highest"
 
 
 def result_struct() -> "ICPResult":
@@ -572,15 +468,11 @@ def gicp_cov_rot(T, aux):
     return jnp.einsum("ij,njk,lk->nil", T.R, C, T.R).reshape(-1, 9)
 
 
-def _index_normals(index, k_normals, k_tiles=4, prec="highest", mode="xla", group=8):
+def _index_normals(index, k_normals, k_tiles=4, prec="highest"):
     """PCA normals for an index's own tiles (self-query radius moments):
     (normals, valid_count) in SORTED tile order. The shared-index fast
     path — one KD build serves NN search and normal estimation
-    (`pcl::NormalEstimation` equivalent, `myicp.cpp:152-172`).
-
-    `mode="vmem"` runs the moment fold in the take-6 Pallas kernel
-    (per-tile candidates, whole weight/moment fold in VMEM — matches the
-    XLA fold to f32 roundoff, see blocknn_pallas.py)."""
+    (`pcl::NormalEstimation` equivalent, `myicp.cpp:152-172`)."""
     import numpy as np
 
     from icpx.kernels.blocknn import block_radius_moments
@@ -591,28 +483,6 @@ def _index_normals(index, k_normals, k_tiles=4, prec="highest", mode="xla", grou
     valid = index.order >= 0
     scale = 3.0 * float(np.sqrt(max(k_normals, 1) / 10.0))
     radius = auto_cell_size(flat, valid, scale=scale)
-    if mode == "vmem":
-        from icpx.kernels.blocknn_pallas import block_radius_moments_fused6
-        from icpx.kernels.eigh3 import smallest_eigenvector_3x3_soa
-
-        # the kernel group-pads internally (pad_t = (-tq) % group), so
-        # non-divisible tile counts need no fallback here (advice r4).
-        # SoA end-to-end: covariance components and the eigenvector stay
-        # (N,) vectors — the (N, 3, 3) AoS round trip cost 216 ms at 8M
-        # (round-5 decomposition; eigh3.py docstring).
-        cnt, _, comps = block_radius_moments_fused6(
-            index.tiles, index, radius, k_tiles=k_tiles, group=group,
-            soa=True,
-        )
-        (vx, vy, vz), _ = smallest_eigenvector_3x3_soa(*comps)
-        # orient toward the (centered-frame) viewpoint at the origin
-        flip = (
-            vx * flat[:, 0] + vy * flat[:, 1] + vz * flat[:, 2]
-        ) > 0.0
-        sign = jnp.where(flip, -1.0, 1.0)
-        normal = jnp.stack([vx * sign, vy * sign, vz * sign], axis=1)
-        ok = (cnt >= 3.0) & valid
-        return jnp.where(ok[:, None], normal, 0.0)
     cnt, _, cov = block_radius_moments(
         index.tiles, index, radius, k_tiles=k_tiles, prec=prec
     )
@@ -629,22 +499,16 @@ def _effective_payload_mode(
     tgt_capacity: int,
     *,
     use_feat: bool,
-    fused: bool,
     will_freeze: bool,
 ) -> str:
     """The payload-delivery mode a block registration will ACTUALLY run.
 
-    The take-6 vmem kernel scores 3D coordinates only and needs a frozen
-    candidate list; feature-augmented (4D-metric), fused-fold, and
-    no-frozen-candidate registrations resolve to the table-size-
-    independent infold path at large sizes instead of silently degrading
-    to the super-linear row gather (review r4 twice: the feat/fused
-    carve-out, then the missing no-candidates one — the gather path was
-    measured at 263 ms/iter at 8M)."""
+    The fused fold kernel scores 3D coordinates only and needs a frozen
+    candidate list; feature-augmented and no-frozen-candidate
+    registrations resolve to the table-size-independent infold path at
+    large sizes (the gather otherwise) instead."""
     pmode = config.resolve_payload(tgt_capacity)
-    if pmode in ("vmem", "vmem7") and (
-        use_feat or fused or not will_freeze
-    ):
+    if pmode == "fold" and (use_feat or not will_freeze):
         pmode = (
             "infold"
             if tgt_capacity >= config.payload_infold_threshold
@@ -734,27 +598,20 @@ def _register_jit(
             )[..., 0]
 
         # In-jit normal estimation off the SAME indexes (one KD build per
-        # cloud total — separate estimate_normals builds cost ~28 ms each
-        # at 1M pts, half the round-2 registration budget).
+        # cloud total instead of a separate estimate_normals build).
         if "src" in normals_for:
             # self-query at the FINE tiling costs a (T, T) candidate
-            # ranking (~40 ms at 1M pts); coarsen to parent tiles first
-            # (same flat point order, so the result aligns with src_xyz)
+            # ranking; coarsen to parent tiles first (same flat point
+            # order, so the result aligns with src_xyz)
             from icpx.kernels.blocknn import coarsen_index
 
             s_idx = src_order_idx
             f = config.block_tile // q_tile
             if f > 1 and s_idx.n_tiles % f == 0:
                 s_idx = coarsen_index(s_idx, f)
-            # normals stay at full score precision: bf16 moments were
-            # -5 ms at 1M but degraded recovered rotation from exact to
-            # 4.9e-4 rad (chip A/B 2026-08-19) — normal noise biases the
-            # symmetric solve SYSTEMATICALLY, unlike NN near-tie swaps.
-            src_n_s = _index_normals(
-                s_idx, config.k_normals, k_tiles=2,
-                mode=config.resolve_moments(src.capacity),
-                group=config.vmem_group,
-            )
+            # normals stay at full score precision: normal noise biases
+            # the symmetric solve SYSTEMATICALLY, unlike NN near-tie swaps
+            src_n_s = _index_normals(s_idx, config.k_normals, k_tiles=2)
         else:
             src_n_s = jnp.where(valid[:, None], src_n[safe], 0.0)
         # Target payload in SORTED tile layout: NN returns sorted flat
@@ -763,13 +620,11 @@ def _register_jit(
         # target KD order — neighbors hit neighboring rows), instead of
         # random-row gathers through the original (arbitrary) point
         # order. In-jit target normals come out of _index_normals already
-        # sorted, skipping the round-1 unsort scatter entirely.
+        # sorted, with no unsort scatter.
         tgt_sorted = tgt_index.tiles.reshape(-1, 3)
         if "tgt" in normals_for:
             tgt_n_sorted = _index_normals(
-                tgt_index, config.k_normals, k_tiles=2,
-                mode=config.resolve_moments(tgt.capacity),
-                group=config.vmem_group,
+                tgt_index, config.k_normals, k_tiles=2
             )
         else:
             from icpx.kernels.blocknn import tile_payload
@@ -778,23 +633,13 @@ def _register_jit(
                 -1, tgt_n.shape[1]
             )
         # one fused (N, 3+D) payload table: a single row gather per
-        # iteration instead of two (q then n_q) — measured 418 -> 263 ms
-        # for the gathers at 8M points
+        # iteration instead of two (q then n_q)
         tgt_pl = jnp.concatenate([tgt_sorted, tgt_n_sorted], axis=1)
 
         sq = q_tile
         tq = src_xyz.shape[0] // sq
-        fused = config.resolve_fused() and not use_feat
-        group = config.block_group if tq % config.block_group == 0 else 1
-        # Payload delivery: the coherent (N, 3+D) row gather wins at <=1M
-        # (28 vs 32.5 ms/iter) but scales super-linearly with table size
-        # (263 ms/iter at 8M); in-fold one-hot MXU selection is
-        # table-size-independent (chip A/B 2026-08-19, NOTES.md).
-        # Will the refine phases have a FROZEN candidate list? The take-6
-        # vmem fold only engages with one (its per-tile candidate prep is
-        # loop-invariant); without it, pmode="vmem" used to fall through
-        # past the vmem branch to the super-linear row gather with no
-        # warning (the path measured at 263 ms/iter at 8M — review r4).
+        # Will the refine phases have a FROZEN candidate list? The fused
+        # fold kernel only engages with one (see _effective_payload_mode).
         coarse = (
             config.coarse_iters > 0
             and config.coarse_stride > 1
@@ -802,79 +647,32 @@ def _register_jit(
             and tq >= 8
             and (4 * sq) % config.coarse_stride == 0
         )
-        will_freeze = (
-            coarse and not fused and config.freeze_refine_candidates
-        )
+        will_freeze = coarse and config.freeze_refine_candidates
         pmode = _effective_payload_mode(
-            config, tgt.capacity,
-            use_feat=use_feat, fused=fused, will_freeze=will_freeze,
+            config, tgt.capacity, use_feat=use_feat, will_freeze=will_freeze
         )
-        infold = not fused and pmode == "infold"
-        # "select" (take 5, round 4): XLA fold produces (d2, pos) at its
-        # measured roofline; a Pallas kernel turns pos into payload rows
-        # entirely in VMEM (kernels/blocknn_pallas.py). Engages on
-        # frozen-candidate phases (refine/mid); phases without a frozen
-        # list fall back to the coherent row gather.
-        select = not fused and pmode == "select"
-        # "vmem" (take 6, round 4): the WHOLE per-iteration fold — score,
-        # min, payload selection — in one VMEM kernel over per-tile
-        # frozen candidates (no HBM score/one-hot round trips, no row
-        # gather). Same frozen-candidate gating as "select".
-        vmem_fold = not fused and not use_feat and pmode in (
-            "vmem", "vmem7"
-        )
-        if infold or select or vmem_fold:
+        if pmode in ("infold", "fold"):
             from icpx.kernels.blocknn import block_nn_payload
 
             tgt_pl_tiles = tgt_pl.reshape(
                 tgt_index.n_tiles, tgt_index.tile_size, tgt_pl.shape[1]
             )
+        if pmode == "fold":
+            from icpx.kernels import fold_triton
 
-        def make_nn(n_tiles, tile_rows, k_tiles, cand=None, qfeat=None,
-                    qcent=None):
-            if vmem_fold and cand is not None:
-                from icpx.kernels.blocknn_pallas import (
-                    block_fold7_pre,
-                    block_fold_fused_pre,
-                    fold6_prepare,
-                    fold7_prepare,
-                )
+            # built once, outside the ICP while loop
+            fold_tabs = fold_triton.fold_tables(tgt_index, tgt_pl_tiles)
 
-                # prep is loop-invariant per phase: computed HERE (at
-                # closure creation, outside the ICP while loop) so the
-                # 1.6 GB-at-8M candidate gathers happen once — XLA's
-                # loop LICM does not reliably hoist them (measured: a
-                # 25.8 GB remat allocation attempt inside the loop).
-                # fold6_prepare/block_fold_fused_pre group-pad internally
-                # (pad_t = (-tq) % group) — no divisibility fallback
-                # needed (advice r4)
-                vg = config.vmem_group
-                if pmode == "vmem7" and qcent is not None:
-                    # take-7: MXU-scored centered fold (round 5)
-                    b_c, pl_c7, qc7, dpl7 = fold7_prepare(
-                        cand, qcent, tgt_index, tgt_pl_tiles, group=vg
-                    )
+        def make_nn(n_tiles, tile_rows, k_tiles, cand=None, qfeat=None):
+            if pmode == "fold" and cand is not None:
 
-                    def nn_fn_vmem7(p):
-                        d2, pl = block_fold7_pre(
-                            p.reshape(n_tiles, tile_rows, 3),
-                            b_c, pl_c7, qc7, dpl7, group=vg,
-                        )
-                        return pl[:, :3], pl[:, 3:], jnp.sqrt(d2)
-
-                    return nn_fn_vmem7
-                rt_c, pl_c, dpl = fold6_prepare(
-                    cand, tgt_index, tgt_pl_tiles, group=vg
-                )
-
-                def nn_fn_vmem(p):
-                    d2, pl = block_fold_fused_pre(
-                        p.reshape(n_tiles, tile_rows, 3),
-                        rt_c, pl_c, dpl, group=vg,
+                def nn_fn_fold(p):
+                    d2, pl = fold_triton.fold_nn(
+                        p.reshape(n_tiles, tile_rows, 3), cand, fold_tabs
                     )
                     return pl[:, :3], pl[:, 3:], jnp.sqrt(d2)
 
-                return nn_fn_vmem
+                return nn_fn_fold
 
             def nn_fn(p):
                 ptiles = p.reshape(n_tiles, tile_rows, 3)
@@ -883,18 +681,9 @@ def _register_jit(
                     if qfeat is not None
                     else None
                 )
-                if fused:
-                    from icpx.kernels.blocknn_pallas import block_nn_fused4
-
-                    d2, pos = block_nn_fused4(
-                        ptiles,
-                        tgt_index,
-                        k_tiles=k_tiles,
-                        group=group,
-                        u_max=config.block_u_max,
-                        return_pos=True,
-                    )
-                elif infold:
+                if pmode != "gather":
+                    # phases without frozen candidates under "fold" also
+                    # take the XLA infold path
                     d2, pl = block_nn_payload(
                         ptiles, tgt_index, tgt_pl_tiles,
                         k_tiles=k_tiles, cand_tiles=cand,
@@ -908,25 +697,14 @@ def _register_jit(
                     # miss/pad rows: d2=inf with zero payload — finite
                     # coords, zero weight downstream, no NaNs
                     return pl[:, :3], pl[:, 3:], jnp.sqrt(d2)
-                else:
-                    d2, pos = block_nn(
-                        ptiles, tgt_index, k_tiles=k_tiles,
-                        return_pos=True, cand_tiles=cand,
-                        query_feat=qf,
-                        feat_tiles=tgt_f_tiles if qf is not None else None,
-                        feat_weight=config.feat_nn_weight,
-                        score_prec=config.resolve_score_prec(),
-                    )
-                    if select and cand is not None:
-                        from icpx.kernels.blocknn_pallas import (
-                            payload_select_fused,
-                        )
-
-                        pl = payload_select_fused(
-                            pos.reshape(n_tiles, tile_rows), cand,
-                            tgt_pl_tiles,
-                        )
-                        return pl[:, :3], pl[:, 3:], jnp.sqrt(d2)
+                d2, pos = block_nn(
+                    ptiles, tgt_index, k_tiles=k_tiles,
+                    return_pos=True, cand_tiles=cand,
+                    query_feat=qf,
+                    feat_tiles=tgt_f_tiles if qf is not None else None,
+                    feat_weight=config.feat_nn_weight,
+                    score_prec=config.resolve_score_prec(),
+                )
                 # pad/miss rows carry d2=inf (gated by the validity mask
                 # downstream); their PAD_COORD coords are finite, so
                 # zero-weight rows cannot produce NaNs in the solve.
@@ -938,7 +716,7 @@ def _register_jit(
         # Coarse phase: stride-subsampled rows of 4 merged sibling KD
         # tiles (the parent node's compact box) — a spatially uniform
         # ~1/stride subsample reusing full-res normals; NN cost drops
-        # ~4x while the motion is still large (NOTES round-1 lever 3).
+        # ~4x while the motion is still large.
         stride = config.coarse_stride
         # `coarse` was decided above (it feeds the payload-mode carve-out)
         if coarse:
@@ -983,16 +761,15 @@ def _register_jit(
 
         # Freeze refine-phase candidate tiles at the coarse-aligned
         # positions: after the coarse phase the residual motion is well
-        # under a tile extent, so the per-iteration candidate ranking
-        # (~15% of a 1M registration) is paid once instead of per
-        # iteration. Only safe when a coarse phase ran (refine starts
-        # near-aligned); the fused kernel selects internally.
-        cand_ref = qcent_ref = None
+        # under a tile extent, so the per-iteration candidate ranking is
+        # paid once instead of per iteration. Only safe when a coarse phase ran (refine starts
+        # near-aligned).
+        cand_ref = None
         if will_freeze:
             from icpx.kernels.blocknn import _candidate_tiles
 
             p0 = init.apply(src_xyz).reshape(tq, sq, 3)
-            cand_ref, qcent_ref = _candidate_tiles(p0, tgt_index, k_ref)
+            cand_ref, _ = _candidate_tiles(p0, tgt_index, k_ref)
 
         # Multi-resolution refine: bulk iterations on every
         # refine_stride-th row WITHIN each query tile (same tiles, same
@@ -1006,7 +783,6 @@ def _register_jit(
             stride_r > 1
             and sq % stride_r == 0
             and sq // stride_r >= 8
-            and not fused
             and config.max_iters > config.refine_full_iters
         )
         mid_iters = jnp.int32(0)
@@ -1036,7 +812,7 @@ def _register_jit(
                 substride(src_n_s, dn),
                 init,
                 make_nn(
-                    tq, sq_m, k_ref, cand=cand_ref, qcent=qcent_ref,
+                    tq, sq_m, k_ref, cand=cand_ref,
                     qfeat=substride(src_f) if use_feat else None,
                 ),
                 aux_rot=aux_rot,
@@ -1053,7 +829,7 @@ def _register_jit(
         res = _icp_scan(
             config, src_xyz, src_mask, src_n_s, init,
             make_nn(
-                tq, sq, k_ref, cand=cand_ref, qcent=qcent_ref,
+                tq, sq, k_ref, cand=cand_ref,
                 qfeat=src_f if use_feat else None,
             ),
             aux_rot=aux_rot,
@@ -1128,7 +904,7 @@ def register_batch(
     """Register B independent pairs in one vmapped executable.
 
     The single-chip DP-over-pairs throughput path (SURVEY P1): batching
-    keeps the MXU/VPU fed when individual pairs are small (odometry-scale
+    keeps the device fed when individual pairs are small (odometry-scale
     scans). Brute-force NN per pair; normals must be precomputed. For
     multi-device DP use `distributed.sharded_register_pairs`.
 
@@ -1176,8 +952,7 @@ def register_batch_block(
     init: Optional[SE3] = None,  # batched (B,) initial guesses
 ) -> ICPResult:
     """Register B independent pairs through the FULL block-NN pipeline in
-    one vmapped executable (round-3 VERDICT missing #2: the small-pair
-    path to the north star).
+    one vmapped executable (the small-pair throughput path).
 
     Where `register_batch` vmaps the brute O(N^2) loop (right for
     odometry-scale scans), this vmaps the complete large-cloud machinery
@@ -1185,7 +960,7 @@ def register_batch_block(
     coarse/refine phases, frozen candidates — so a batch of B x 65k
     pairs costs what one (B*65k)-point registration costs instead of B
     fixed overheads: the batch dimension rides every sort/einsum/gather
-    as a leading axis and the chip sees large ops + ONE dispatch.
+    as a leading axis and the device sees large ops + ONE dispatch.
     Normals are always estimated in-jit (pass clouds, not normals).
 
     Solves in per-pair target-centroid coordinates like `register`

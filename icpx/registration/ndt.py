@@ -2,8 +2,7 @@
 2003; Magnusson 2009), point-to-distribution form.
 
 The reference has no NDT (its only finished objective is symmetric ICP,
-`myicp.cpp:100-150`); this extends the framework's objective family the
-TPU-native way by REUSING the existing machinery instead of growing a
+`myicp.cpp:100-150`); this extends the framework's objective family by REUSING the existing machinery instead of growing a
 new pipeline:
 
   * cells: the target's KD tiles double as NDT cells — density-adaptive

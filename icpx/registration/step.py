@@ -57,7 +57,7 @@ def correspondence_weights(
     With a collective `reduce` (sharded mode), the MAD scale and trim
     quantile are computed over the GLOBAL correspondence set via psum'd
     histograms (`_reduced_quantile`), so robust weights are
-    shard-count-independent by construction (round-1 VERDICT weak #8: the
+    shard-count-independent by construction (the
     per-shard statistics made results depend on the mesh layout).
     """
     sharded = reduce is not identity_reduce

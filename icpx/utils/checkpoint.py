@@ -85,7 +85,7 @@ class OdometryCheckpoint:
     kf_masks: Optional[np.ndarray] = None
     # sliding-window backend state (backend="sliding_window"): the
     # MarginalPrior is a plain pytree — checkpointing it makes resume
-    # bit-exact (round-2 VERDICT weak #4: re-marginalizing from saved
+    # bit-exact (re-marginalizing from saved
     # estimates linearizes at different points than the original run).
     # `win_active0` = first non-marginalized WINDOW node id;
     # `win_edges` = surviving window edges (i, j, R, t, weight) in

@@ -31,8 +31,7 @@ def nan_checks(enabled: bool = True):
 def deterministic_mode():
     """Bitwise-reproducible reductions across runs (slower).
 
-    XLA's default on TPU is already deterministic for a fixed program;
-    this additionally pins matmul precision to HIGHEST inside the scope
+    This pins matmul precision to HIGHEST inside the scope
     so results do not shift between precision heuristics.
     """
     prev = jax.config.jax_default_matmul_precision

@@ -1,9 +1,9 @@
 """Compiled-HLO dependence analysis: proves the ring/EP overlap story
-without multi-chip hardware (round-3 VERDICT missing #3).
+without multi-chip hardware.
 
 The claim under test (`distributed/ring.py`): per-step communication
 (`ppermute` of the visiting target shard, EP `all-to-all` routing) can
-overlap the per-shard fold compute. On TPU the LatencyHidingScheduler
+overlap the per-shard fold compute. XLA's latency-hiding scheduler
 turns a collective into an async `collective-permute-start`/`-done` pair
 and hoists independent compute between them — but ONLY when the def-use
 graph allows it: the collective must neither consume the fold's outputs
@@ -246,7 +246,7 @@ class CollectiveTraffic:
 def collective_traffic(hlo_text: str) -> List[CollectiveTraffic]:
     """Every collective op in the module with its per-device result
     bytes — the auditable input to the multi-host scaling model
-    (scripts/scaling_model.py). Compile the program with max_iters=1 so
+    (bytes per collective per iteration). Compile the program with max_iters=1 so
     loop-body collectives appear exactly once per modeled iteration."""
     rows: List[CollectiveTraffic] = []
     comp = None

@@ -3,7 +3,7 @@
 Replaces the reference's only observability — `cout` prints of iteration
 number and diff (`myicp.cpp:125-126`) — with machine-readable records
 (SURVEY §5.5): every run can emit {iter, diff, rmse, inliers} rows plus
-arbitrary scalars, consumable by the bench harness (BASELINE.md schema).
+arbitrary scalars, consumable by the bench harness.
 """
 
 from __future__ import annotations

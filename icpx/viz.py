@@ -1,6 +1,6 @@
 """Offline visualization: snapshot renders replacing the reference's
 interactive `PCLVisualizer` spin loops (`main.cpp:13-40`,
-`matrix-transform.cpp:119-137`) — TPU hosts are headless, so alignment is
+`matrix-transform.cpp:119-137`) — accelerator hosts are headless, so alignment is
 judged from saved images (and from metrics, §5.5) instead of by eye.
 """
 
@@ -15,7 +15,12 @@ from icpx.cloud import PointCloud
 
 
 def _get_plt():
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError:
+        raise RuntimeError(
+            "rendering (--render) needs matplotlib, which is not installed"
+        ) from None
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt

@@ -1,8 +1,7 @@
 // icpx native IO kernels — the C++ data-loader tier.
 //
 // The reference delegates cloud parsing to PCL's C++ readers
-// (`pcl::PCDReader::read`, `myicp.cpp:22-26`); the TPU-native framework
-// keeps the same split: Python orchestrates headers/dispatch, this
+// (`pcl::PCDReader::read`, `myicp.cpp:22-26`); this framework keeps the same split: Python orchestrates headers/dispatch, this
 // library does the hot byte-level work (whitespace-separated float
 // tables for ASCII PCD/PLY/xyz, float formatting for writers). Exposed
 // through ctypes (no pybind11 dependency in the image).

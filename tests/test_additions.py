@@ -206,7 +206,7 @@ def test_large_offset_coordinates():
     centred coordinates). The offset magnitude is bounded by fp32 INGEST
     precision, not by the solver: at 2e4 the quantization step (~2e-3)
     still resolves the surface detail relative to its ~0.01 point
-    spacing; larger magnitudes need f64 centring at ingest (NOTES.md)."""
+    spacing; larger magnitudes need f64 centring at ingest."""
     import jax.numpy as jnp
 
     offset = np.asarray([2.0e3, -1.5e3, 300.0], np.float32)

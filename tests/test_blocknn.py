@@ -3,6 +3,7 @@ convergence using nn_method="block"."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from icpx.cloud import PointCloud
 from icpx.geometry.se3 import SE3
@@ -117,7 +118,7 @@ def test_kd_index_shapes_and_order(rng):
 
 
 def test_kd_index_recall_surface(rng):
-    """VERDICT round-1 item 3: >=99.9% recall with KD-split tiles at the
+    """>=99.9% recall with KD-split tiles at the
     default operating point (S=128, Sq=32, K=12 -- 25% less fold work than
     the round-1 Morton S=256/Sq=64/K=8 default)."""
     from icpx.kernels.blocknn import build_kd_index
@@ -166,106 +167,50 @@ def test_kd_index_masked(rng):
     assert np.all(np.abs(tiles[order < 0]) >= 1e6)
 
 
-def test_fused4_matches_brute(rng):
-    """The kept fused kernel (take 4, interpret mode) returns exact NN on
-    data where the candidate union covers the true tile."""
-    from icpx.kernels.blocknn import build_kd_index
-    from icpx.kernels.blocknn_pallas import block_nn_fused4
-
-    r = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
-    q = rng.uniform(-1, 1, (4000, 3)).astype(np.float32)
-    ridx = build_kd_index(r, tile_size=128)
-    qidx = build_kd_index(q, tile_size=32)
-    d_f, i_f = block_nn_fused4(
-        qidx.tiles, ridx, k_tiles=12, group=4, u_max=32, interpret=True
+def test_eigh3_soa_matches_aos_on_fold_covariances(rng):
+    """The SoA eigensolver core (the path the normals stage runs) agrees
+    with the AoS wrapper on covariances from the XLA radius-moments fold,
+    and the fold's covariances match a dense numpy recomputation over
+    the same in-radius candidate neighbours."""
+    from icpx.kernels.blocknn import (
+        _candidate_tiles, block_radius_moments, build_kd_index,
     )
-    valid = np.asarray(qidx.order) >= 0
-    d_b, i_b = _nearest_neighbor_jnp(
-        jnp.asarray(np.asarray(qidx.tiles).reshape(-1, 3)), jnp.asarray(r)
-    )
-    assert (np.asarray(i_f)[valid] == np.asarray(i_b)[valid]).mean() > 0.999
-    miss = (np.asarray(d_f)[valid] > np.asarray(d_b)[valid] + 1e-6).mean()
-    assert miss < 0.001
-
-
-def test_fused_moments_superset_of_jnp(rng):
-    """Fused radius moments sees a candidate-union superset: neighbor
-    counts are >= the jnp fold's, and equal-count rows agree to fp32."""
-    from icpx.kernels.blocknn import build_kd_index, block_radius_moments
-    from icpx.kernels.blocknn_pallas import block_radius_moments_fused
-
-    r = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
-    idx = build_kd_index(r, tile_size=128)
-    radius = jnp.float32(0.15)
-    cnt_f, mean_f, cov_f = block_radius_moments_fused(
-        idx.tiles, idx, radius, k_tiles=8, group=4, u_max=32, interpret=True
-    )
-    cnt_j, mean_j, cov_j = block_radius_moments(
-        idx.tiles, idx, radius, k_tiles=8
-    )
-    valid = np.asarray(idx.order) >= 0
-    cf, cj = np.asarray(cnt_f)[valid], np.asarray(cnt_j)[valid]
-    assert np.all(cf >= cj)
-    same = cf == cj
-    assert same.mean() > 0.8
-    assert np.abs(np.asarray(mean_f)[valid][same] - np.asarray(mean_j)[valid][same]).max() < 1e-5
-    assert np.abs(np.asarray(cov_f)[valid][same] - np.asarray(cov_j)[valid][same]).max() < 1e-5
-
-
-def test_moments6_matches_jnp_fold(rng):
-    """Take-6 VMEM moments (per-tile candidates, pre-centered S-minor
-    operands) reproduce the jnp fold's counts/means/covs at the SAME
-    k_tiles — same candidate lists, so exact agreement to fp32 noise,
-    not the union-superset contract of the take-4 kernel."""
-    from icpx.kernels.blocknn import build_kd_index, block_radius_moments
-    from icpx.kernels.blocknn_pallas import block_radius_moments_fused6
-
-    r = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
-    idx = build_kd_index(r, tile_size=128)
-    radius = jnp.float32(0.15)
-    cnt_6, mean_6, cov_6 = block_radius_moments_fused6(
-        idx.tiles, idx, radius, k_tiles=4, interpret=True
-    )
-    cnt_j, mean_j, cov_j = block_radius_moments(
-        idx.tiles, idx, radius, k_tiles=4
-    )
-    valid = np.asarray(idx.order) >= 0
-    np.testing.assert_array_equal(
-        np.asarray(cnt_6)[valid], np.asarray(cnt_j)[valid]
-    )
-    assert np.abs(
-        np.asarray(mean_6)[valid] - np.asarray(mean_j)[valid]
-    ).max() < 1e-5
-    assert np.abs(
-        np.asarray(cov_6)[valid] - np.asarray(cov_j)[valid]
-    ).max() < 1e-4
-    # SoA variant (round 5): component covariances match the AoS tensor
-    # exactly (same kernel output, different packing), and the SoA
-    # eigensolver agrees with the AoS wrapper on the derived normal.
     from icpx.kernels.eigh3 import (
         smallest_eigenvector_3x3,
         smallest_eigenvector_3x3_soa,
     )
 
-    cnt_s, mean_s, comps = block_radius_moments_fused6(
-        idx.tiles, idx, radius, k_tiles=4, interpret=True, soa=True
+    r = rng.uniform(-1, 1, (8000, 3)).astype(np.float32)
+    idx = build_kd_index(r, tile_size=128)
+    radius = jnp.float32(0.15)
+    cnt, mean, cov = block_radius_moments(idx.tiles, idx, radius, k_tiles=4)
+    cnt, mean, cov = (np.asarray(x) for x in (cnt, mean, cov))
+    valid = np.asarray(idx.order) >= 0
+
+    # dense reference for a sample of queries, over the SAME candidates
+    cand, _ = _candidate_tiles(idx.tiles, idx, 4)
+    tiles = np.asarray(idx.tiles)
+    cand = np.asarray(cand)
+    flat = tiles.reshape(-1, 3)
+    sq = tiles.shape[1]
+    for i in np.nonzero(valid)[0][::97]:
+        pts = tiles[cand[i // sq]].reshape(-1, 3)
+        pts = pts[np.abs(pts).max(1) < 1e6]
+        near = pts[((pts - flat[i]) ** 2).sum(1) <= 0.15**2]
+        assert cnt[i] == len(near)
+        np.testing.assert_allclose(mean[i], near.mean(0), atol=1e-5)
+        np.testing.assert_allclose(
+            cov[i], np.cov(near.T, bias=True), atol=1e-4
+        )
+
+    comps = (cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2],
+             cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2])
+    (vx, vy, vz), _ = smallest_eigenvector_3x3_soa(
+        *(jnp.asarray(c) for c in comps)
     )
-    np.testing.assert_array_equal(np.asarray(cnt_s), np.asarray(cnt_6))
-    np.testing.assert_allclose(
-        np.asarray(mean_s), np.asarray(mean_6), atol=1e-6
-    )
-    c00, c01, c02, c11, c12, c22 = (np.asarray(c) for c in comps)
-    cov_np = np.asarray(cov_6)
-    np.testing.assert_allclose(c00, cov_np[:, 0, 0], atol=1e-6)
-    np.testing.assert_allclose(c01, cov_np[:, 0, 1], atol=1e-6)
-    np.testing.assert_allclose(c02, cov_np[:, 0, 2], atol=1e-6)
-    np.testing.assert_allclose(c11, cov_np[:, 1, 1], atol=1e-6)
-    np.testing.assert_allclose(c12, cov_np[:, 1, 2], atol=1e-6)
-    np.testing.assert_allclose(c22, cov_np[:, 2, 2], atol=1e-6)
-    (vx, vy, vz), _ = smallest_eigenvector_3x3_soa(*comps)
-    v_aos, _ = smallest_eigenvector_3x3(jnp.asarray(cov_np))
+    v_aos, _ = smallest_eigenvector_3x3(jnp.asarray(cov))
     v_soa = np.stack([np.asarray(vx), np.asarray(vy), np.asarray(vz)], 1)
-    ok = np.asarray(cnt_s) >= 3
+    ok = valid & (cnt >= 3)
     dots = np.abs(np.sum(v_soa[ok] * np.asarray(v_aos)[ok], axis=1))
     assert dots.min() > 1.0 - 1e-5
 
@@ -465,9 +410,24 @@ def test_block_nn_payload_matches_gather(rng):
         )
 
 
-def test_register_payload_modes_equivalent(rng):
-    """payload_mode=gather and =infold produce identical registrations
-    on the block path (miss rows gated identically)."""
+@pytest.fixture
+def fold_interpreted(monkeypatch):
+    """Route the registration's GPU fold kernel through the Pallas
+    interpreter (the kernel never interprets by itself)."""
+    import functools
+
+    from icpx.kernels import fold_triton
+
+    monkeypatch.setattr(
+        fold_triton, "fold_nn",
+        functools.partial(fold_triton.fold_nn, interpret=True),
+    )
+
+
+def test_register_payload_modes_equivalent(rng, fold_interpreted):
+    """payload_mode gather, infold and fold (the GPU fold kernel, here
+    interpreted) produce the same registration on the block path (miss
+    rows gated identically)."""
     from icpx.geometry.transforms import make_rigid_perturbation
     from icpx.registration.icp import _register_jit
 
@@ -481,7 +441,7 @@ def test_register_payload_modes_equivalent(rng):
         mask=src.mask[perm]
     )
     results = {}
-    for mode in ("gather", "infold", "select", "vmem", "vmem7"):
+    for mode in ("gather", "infold", "fold"):
         cfg = ICPConfig(
             max_iters=8, diff_threshold=0.0, rmse_change_tol=1e-6,
             nn_method="block", payload_mode=mode,
@@ -492,33 +452,20 @@ def test_register_payload_modes_equivalent(rng):
         rot_err, t_err = res.transform.distance_to(gt)
         assert float(rot_err) < 5e-3 and float(t_err) < 5e-3, mode
         results[mode] = res
-    for other in ("infold", "select", "vmem", "vmem7"):
+    for other in ("infold", "fold"):
         np.testing.assert_allclose(
             np.asarray(results["gather"].transform.R),
             np.asarray(results[other].transform.R),
             atol=1e-5, err_msg=other,
         )
-        if other == "vmem":
-            # take-6 scores on the f32 VPU: near-tie NN picks differ,
-            # so histories agree only to the converged noise floor, and
-            # the stop can shift by an iter.
-            assert (
-                abs(
-                    float(results[other].final_rmse)
-                    - float(results["gather"].final_rmse)
-                )
-                < 5e-6
-            )
-            continue
-        if other == "vmem7":
-            # take-7 scores on the centered-bf16 MXU — the same
-            # precision class as the TPU defaults' XLA fold
-            # (score_precision="auto"->bf16): REPORTED distances carry a
-            # bf16 noise floor ~ (tile extent)^2 * 2^-9, so final_rmse
-            # floors near 1e-3 here while the POSE (solved from
-            # f32-exact payload coordinates) matches to fp32 (asserted
-            # above on R).
-            assert float(results[other].final_rmse) < 2e-3
+        if other == "fold":
+            # the kernel scores exact differences, not the norm
+            # expansion: near-tie picks differ and its distances carry
+            # no expansion rounding, so its rmse converges at or below
+            # the XLA folds' floor and the stop can shift by an iter
+            assert float(results[other].final_rmse) <= float(
+                results["gather"].final_rmse
+            ) + 1e-6
             continue
         np.testing.assert_allclose(
             np.asarray(results["gather"].rmse_history),
@@ -527,19 +474,20 @@ def test_register_payload_modes_equivalent(rng):
         )
 
 
-def test_vmem_without_frozen_candidates_never_gathers(rng):
-    """pmode="vmem" with no frozen candidate list (coarse disabled)
-    resolves to infold above payload_infold_threshold — NOT the silent
-    super-linear row-gather fallthrough (VERDICT r4 weak #3) — and the
-    registration matches the gather path's pose."""
+def test_vmem_without_frozen_candidates_never_gathers(rng, fold_interpreted):
+    """payload_mode="fold" (the fused fold kernel, which took over the
+    frozen-candidate "vmem" mode) with no frozen candidate list (coarse
+    disabled) resolves to infold above payload_infold_threshold — NOT a silent
+    row-gather fallthrough — and the registration matches the gather
+    path's pose."""
     from icpx.registration.icp import (
         _effective_payload_mode,
         _register_jit,
     )
 
     # resolution contract, every branch:
-    cfg = ICPConfig(payload_mode="vmem", payload_infold_threshold=4096)
-    kw = dict(use_feat=False, fused=False)
+    cfg = ICPConfig(payload_mode="fold", payload_infold_threshold=4096)
+    kw = dict(use_feat=False)
     assert (
         _effective_payload_mode(cfg, 16384, will_freeze=False, **kw)
         == "infold"
@@ -550,16 +498,14 @@ def test_vmem_without_frozen_candidates_never_gathers(rng):
     )
     assert (
         _effective_payload_mode(cfg, 16384, will_freeze=True, **kw)
-        == "vmem"
+        == "fold"
     )
     assert (
-        _effective_payload_mode(
-            cfg, 16384, use_feat=True, fused=False, will_freeze=True
-        )
+        _effective_payload_mode(cfg, 16384, use_feat=True, will_freeze=True)
         == "infold"
     )
 
-    # behavioral parity: coarse_iters=0 + payload_mode="vmem" registers
+    # behavioral parity: coarse_iters=0 + payload_mode="fold" registers
     # (on the resolved infold path) to the same pose as explicit gather
     from icpx.geometry.transforms import make_rigid_perturbation
 
@@ -573,7 +519,7 @@ def test_vmem_without_frozen_candidates_never_gathers(rng):
         mask=src.mask[perm]
     )
     results = {}
-    for mode in ("vmem", "gather"):
+    for mode in ("fold", "gather"):
         cfg = ICPConfig(
             max_iters=8, diff_threshold=0.0, rmse_change_tol=1e-6,
             nn_method="block", payload_mode=mode, coarse_iters=0,
@@ -586,12 +532,12 @@ def test_vmem_without_frozen_candidates_never_gathers(rng):
         assert float(rot_err) < 5e-3 and float(t_err) < 5e-3, mode
         results[mode] = res
     np.testing.assert_allclose(
-        np.asarray(results["vmem"].transform.R),
+        np.asarray(results["fold"].transform.R),
         np.asarray(results["gather"].transform.R),
         atol=1e-5,
     )
     np.testing.assert_allclose(
-        np.asarray(results["vmem"].transform.t),
+        np.asarray(results["fold"].transform.t),
         np.asarray(results["gather"].transform.t),
         atol=1e-4,
     )
@@ -601,9 +547,8 @@ def test_refine_stride_parity_and_history(rng):
     """Explicit refine_stride=2 agrees with stride 1 on the recovered
     pose, in the 8M bench combination (infold payload + Sq=128 query
     tiles) scaled down to CPU size. (Auto no longer engages stride 2
-    anywhere: the 8M chip A/B measured it losing end-to-end — NOTES
-    round-4; the knob remains for explicit use and this test keeps its
-    correctness pinned.) Also pins the round-4 history contract: the
+    anywhere; the knob remains for explicit use and this test keeps its
+    correctness pinned.) Also pins the history contract: the
     mid phase's diff/rmse iterations are merged into the returned
     histories (sized config.max_iters), total refine iterations stay
     within max_iters, and a mid-phase stop carries into `converged`."""
@@ -798,10 +743,8 @@ def test_kd_index_qform_large_builds(rng):
     # regime (k_tiles=12 x 8 = 96-point candidate pools; same-occupancy
     # po2 misses 3.0% here, q-form 4.5%): full tiles cover more volume
     # per candidate than the old padding's ~62%-occupied ones. The
-    # design-point gates are test_default_operating_point_recall (S=128,
-    # CPU) and the 10M chip bench, where the q-form build left rmse and
-    # GT recovery bit-unchanged (5.90e-3) while cutting the wall
-    # 2439 -> 2264 ms (build sorts run 10.5M rows instead of 16.8M).
+    # design-point gate is test_default_operating_point_recall (S=128);
+    # at 10M points the q-form build sorts 10.5M rows instead of 16.8M.
     q = synthetic_surface(4096, seed=7)
     qidx = build_kd_index(q, tile_size=32)
     d_v, _ = block_nn(qidx.tiles, trim_index(idx, n), k_tiles=12)

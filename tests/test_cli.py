@@ -155,7 +155,7 @@ def test_register_ndt_rejects_pyramid(cloud_file, tmp_path):
 
 def test_odometry_scan_to_map_cli(capsys):
     """--mode scan_to_map drives the voxel-map frontend from the CLI
-    (round-2 VERDICT weak #8: the tested map mode had no CLI surface)."""
+    (the tested map mode had no CLI surface)."""
     assert main([
         "odometry", "--synthetic", "--frames", "5",
         "--points-per-scan", "1024",
@@ -175,8 +175,8 @@ def test_compiled_rejects_scan_to_map():
 
 
 def test_data_dir_env_read_at_call_time(tmp_path, monkeypatch):
-    """ICPX_DATA_DIR set AFTER import must take effect (round-2 VERDICT
-    weak #8: it was read once at import)."""
+    """ICPX_DATA_DIR set AFTER import must take effect (it used to be
+    read once at import)."""
     from icpx.io import loaders
 
     monkeypatch.setenv("ICPX_DATA_DIR", str(tmp_path))
@@ -190,8 +190,7 @@ def test_data_dir_env_read_at_call_time(tmp_path, monkeypatch):
 def test_odometry_velodyne_dir_end_to_end(tmp_path, capsys):
     """Full KITTI-format path: write byte-exact .bin scans + poses file,
     then run `icpx odometry --velodyne-dir` over them and check the ATE
-    the CLI computes against the poses file (round-2 VERDICT missing #6:
-    .bin ingest -> odometry -> ATE, not just format round-trips)."""
+    the CLI computes against the poses file (.bin ingest -> odometry -> ATE, not just format round-trips)."""
     import jax.numpy as jnp
 
     from icpx.geometry.se3 import SE3

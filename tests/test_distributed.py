@@ -155,8 +155,7 @@ def test_sharded_register_pairs_dp():
 
 @pytest.mark.parametrize("ring", [False, True])
 def test_sharded_block_nn_register(ring):
-    """Block (tile-index) NN inside shard_map — the scalable P3 path
-    (VERDICT round-1 missing #1): per-shard KD sort + tile index, ring
+    """Block (tile-index) NN inside shard_map — the scalable P3 path: per-shard KD sort + tile index, ring
     rotation of index+payload when the target is sharded. Must solve the
     same problem the brute sharded path does."""
     src, tgt, gt = _pair(n=4096, seed=3)
@@ -188,7 +187,7 @@ def test_sharded_block_nn_register(ring):
 
 def test_sharded_gicp_register():
     """GICP sharded: covariance payloads plumb through the points mesh
-    (round-1 VERDICT missing #4 — the sharded path refused gicp)."""
+    (the sharded path used to refuse gicp)."""
     src, tgt, gt = _pair(n=1024, seed=7, angle=0.15, trans=0.1)
     cfg = ICPConfig(
         objective="gicp",
@@ -213,7 +212,7 @@ def test_sharded_gicp_register():
 
 def test_sharded_robust_stats_shard_independent():
     """Auto (MAD) robust scale + trim quantile must be shard-count
-    independent: psum'd histogram statistics (round-1 VERDICT weak #8).
+    independent: psum'd histogram statistics.
     Compare 8-shard vs single-device with robust='huber', robust_scale=0
     and trimming enabled — round 1 documented these as divergent."""
     src, tgt, gt = _pair(n=2048, seed=11)
@@ -336,7 +335,7 @@ def test_parallel_odometry_matches_sequential():
 def test_pairs_aux_width_validated():
     """The pairs aux channel is width-checked: GICP needs (B, N, 9)
     covariances, normals objectives need (B, N, 3) — a mismatch fails
-    loudly instead of mis-reshaping (round-2 VERDICT missing #5)."""
+    loudly instead of mis-reshaping."""
     mesh = make_mesh(axis_names=("pairs", "points"), shape=(2, 4))
     z3 = jnp.zeros((2, 256, 3))
     z9 = jnp.zeros((2, 256, 9))
@@ -354,7 +353,7 @@ def test_pairs_aux_width_validated():
 def test_sharded_pairs_gicp_matches_single():
     """GICP on the DP pairs path (aux width 9 + per-pair covariance
     rotation) recovers each pair's GT and matches single-device register
-    (round-2 VERDICT missing #5: the carve-out is gone)."""
+    (the carve-out is gone)."""
     from icpx.kernels.normals import estimate_covariances
 
     mesh = make_mesh(shape=(2, 4), axis_names=("pairs", "points"))
@@ -394,7 +393,7 @@ def test_sharded_pairs_gicp_matches_single():
 
 def test_parallel_odometry_gicp():
     """parallel_odometry with objective='gicp' estimates covariances per
-    frame and runs the pairs path (round-2 VERDICT missing #5)."""
+    frame and runs the pairs path."""
     from icpx.odometry.parallel import parallel_odometry
 
     cfg = ICPConfig(
@@ -420,7 +419,7 @@ def test_parallel_odometry_gicp():
 
 @pytest.mark.parametrize("ring", [False, True])
 def test_sharded_feat_nn_register(ring):
-    """feat_nn rides the sharded block path (round-2 VERDICT missing #4):
+    """feat_nn rides the sharded block path:
     the degenerate-plane scenario only solvable with the 4D metric, at 8
     shards, both replicated-target and ring modes; matches single-device."""
     n = 8192

@@ -59,9 +59,9 @@ def test_repeated_eigenvalues():
 def test_small_scale_covariances_no_fallback():
     """Millimeter-spacing neighborhoods produce covariance entries
     ~1e-6 whose eigenvector cross products have norms ~1e-12: the
-    solver must normalize them, not hit the isotropic fallback (a
-    round-5 chip regression thresholded the SQUARED norm and sent
-    every 1M-cloud normal to [0,0,1], diverging the registration)."""
+    solver must normalize them, not hit the isotropic fallback (an
+    earlier version thresholded the SQUARED norm and sent every
+    1M-cloud normal to [0,0,1], diverging the registration)."""
     import numpy as np
 
     from icpx.kernels.eigh3 import smallest_eigenvector_3x3

@@ -117,7 +117,7 @@ def test_guarded_call_passes_and_raises():
 
 def test_odometry_frontend_runs_under_watchdog():
     """run_odometry with an explicit stall_timeout_s completes normally
-    (per-frame fences beat) — the wiring the round-3 verdict asked for."""
+    (per-frame fences beat)."""
     from icpx.odometry.frontend import OdometryConfig, run_odometry
     from icpx.odometry.kitti import make_trajectory, make_world, simulate_scans
 

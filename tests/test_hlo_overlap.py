@@ -1,7 +1,6 @@
-"""Hardware-independent proof of the ring/EP comm-overlap story
-(round-3 VERDICT missing #3 / weak #4).
+"""Hardware-independent proof of the ring/EP comm-overlap story.
 
-The TPU LatencyHidingScheduler can only convert a collective into an
+XLA's latency-hiding scheduler can only convert a collective into an
 async start/done pair bracketing independent compute when the def-use
 graph permits it. The CPU virtual-mesh compiler emits the SAME loop body
 with a synchronous collective (verified: 0 start/done pairs on CPU), so

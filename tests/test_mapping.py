@@ -145,7 +145,7 @@ def test_candidate_gating_scales_to_1000_keyframes():
     """Candidate generation (descriptors + pair gating) for 1000
     keyframes completes in < 1 s once warm — the gating is one vmapped
     descriptor pass + vectorized numpy over the (M, M) gate masks, not
-    a Python double loop (VERDICT r4 weak #5)."""
+    a Python double loop."""
     import time
 
     from icpx.odometry.loopclosure import _candidates

@@ -114,7 +114,7 @@ def test_sparse_matches_dense(key):
 
 
 def test_sparse_scales_to_1000_keyframes(key):
-    """VERDICT round-1 item 4: 1,000-keyframe graph optimizes in < 5 s on
+    """1,000-keyframe graph optimizes in < 5 s on
     CPU (the dense Hessian alone would be 144 MB / O(M^3) solve)."""
     import time
 
@@ -163,7 +163,7 @@ def test_sparse_scales_to_1000_keyframes(key):
 
 
 def test_false_closure_robust_kernel(key):
-    """VERDICT round-1 item 4: one injected false closure shifts the
+    """one injected false closure shifts the
     solution < 10% (ATE sense) with the DCS kernel; without it the
     solution is visibly corrupted."""
     from icpx.odometry.evaluate import ate_rmse

@@ -115,8 +115,7 @@ def test_identity_pair_converges_immediately():
 
 
 def test_bunny_line_fixture_rank_deficient_registration():
-    """The second reference fixture (BASELINE.json config "bunny
-    pairs"): the 93-pt cloud from za.txt via the txt->pcd converter
+    """The second reference fixture ("bunny pairs"): the 93-pt cloud from za.txt via the txt->pcd converter
     (`/root/reference/ICP/test.cpp` analogue) is in fact a 1-D LINE
     scan — extent (0.358, 0.0034, 0.0023) — so a full 6-DoF pose is
     UNOBSERVABLE from it (rotation about + translation along the line

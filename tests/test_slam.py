@@ -132,7 +132,7 @@ def test_scan_to_map_stays_bounded():
     assert ate_map < 0.7, f"map-mode ATE {ate_map:.3f}"
 
 def test_closure_found_beyond_drift_gate():
-    """VERDICT round-1 item 5: closures discoverable when accumulated
+    """closures discoverable when accumulated
     drift exceeds max_candidate_dist (position gating alone can never
     find these), via the appearance (ring-descriptor) channel + yaw
     seeding; verification is batched."""

@@ -5,6 +5,7 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from icpx.geometry.se3 import SE3
 from icpx.utils.checkpoint import (
@@ -68,22 +69,37 @@ def test_odometry_checkpoint_roundtrip(tmp_path, key):
     assert len(back.poses()) == 4
 
 
-def test_time_fn_cache_bust():
+def test_time_fn_blocks_each_rep():
     calls = []
 
-    def f(x, eps):
+    def f(x):
         calls.append(1)
-        return x + eps
+        return x + 1.0
 
-    t = time_fn(f, jnp.ones(8), reps=3, cache_bust=lambda k: jnp.float32(k))
+    t = time_fn(f, jnp.ones(8), reps=3)
     assert t >= 0 and len(calls) == 4  # 1 warmup + 3 reps
 
 
 def test_speed_of_light():
-    out = kernel_speed_of_light(seconds=1e-3, flops=49e9, hbm_bytes=82e6)
+    kind = "NVIDIA H100 80GB HBM3"
+    out = kernel_speed_of_light(
+        seconds=1e-3, flops=67e9, hbm_bytes=335e6, device_kind=kind
+    )
     assert abs(out["f32_flops_frac"] - 1.0) < 1e-6
     assert abs(out["hbm_frac"] - 0.1) < 1e-6
     assert out["bound_frac"] == out["f32_flops_frac"]
+
+
+def test_peaks_table_keyed_by_device_kind():
+    from icpx.utils.profiling import device_peaks
+
+    p = device_peaks("NVIDIA H100 80GB HBM3")
+    assert p["hbm_bytes"] == 3.35e12 and p["bf16_flops"] == 989e12
+    assert p["power_limit_w"] == 700.0
+    with pytest.raises(ValueError, match="no peak table entry"):
+        device_peaks("cpu")
+    with pytest.raises(ValueError):
+        device_peaks()  # the test backend's CPU device is not a peak entry
 
 
 def test_viz_renders(tmp_path):
